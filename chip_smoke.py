@@ -8,15 +8,24 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
 1. device: the card's name and power limit;
 2. build: ``nvcc`` compiles every kernel of ``src/repro_torch/kernels/csrc``;
 3. kernels vs their plain PyTorch versions on the card, over the reference
-   test sweep (``tests/test_kernels.py`` SHAPES, f32 and bf16) and the
-   main path's shapes, at rtol=3e-3, atol=1e-5;
+   test sweeps (``tests/test_kernels.py`` SHAPES, f32 and bf16, at
+   rtol=3e-3, atol=1e-5; ``tests/test_wire.py``'s uplink shapes, f32 and
+   bf16 v/e_old, at rtol=3e-5, atol=1e-5) and the main path's shapes;
 4. ``run_training`` in ``mode="vmap"`` for 3 rounds on full-width VGG-9
    with the paper's FL setup (N=50, K=20, n=4, B=32, lr=0.05, fedldf);
    one round's divergence matrix, selection and new params are held
    against the same round computed with the plain Eq. 3 reduction;
 5. the same in ``mode="scan"``; its round must match phase 4's to 2e-5;
-6. kernel times at the main path's shapes beside the byte bound, the plain
-   version and a library call, and each mode's round time.
+6. the packed compressed uplink, setting A (int8 levels, error feedback):
+   ``run_training`` for 3 rounds, exact uplink bytes, the (50, ...)
+   residual store and 34 ``fused_uplink_ef`` launches a round; one round
+   held against the same round through the plain uplink kernels
+   (identical selection and levels, params within 2e-5) and against the
+   legacy unfused chain (relative L2 below 1e-4);
+7. setting B (int4 levels, no error feedback): 2 rounds, exact uplink
+   bytes, 34 ``fused_uplink`` launches a round, one round against plain;
+8. kernel times at the main path's shapes beside the byte bound, the plain
+   version and a library call, and each path's round time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The data set is cut to 10,000 training
@@ -24,6 +33,7 @@ images (200 per client instead of the paper's 1,000) to keep set-up short;
 weights are random, drawn from a fixed seed.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,12 +43,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 ROUNDS = 3
+ROUNDS_B = 2                # setting B (int4) runs fewer rounds
 NUM_TRAIN = 10_000          # the paper's 50,000 cut 5x (set-up time)
 TOL = {"rtol": 3e-3, "atol": 1e-5}  # tests/test_kernels.py:33,45
+UPLINK_TOL = {"rtol": 3e-5, "atol": 1e-5}  # tests/test_wire.py:187,206
 EQUIV_TOL = 2e-5            # benchmarks/round_engine_bench.py:59
 # tests/test_kernels.py:18
 SHAPES = [(1, 1), (1, 37), (4, 1000), (8, 2048), (9, 2049), (48, 5000),
           (3, 16384), (62, 33)]
+# tests/test_wire.py:174-175 and :191
+UPLINK_SHAPES = [(1, 1, 1), (3, 7, 129), (4, 16, 2048), (5, 33, 2049)]
+UPLINK_EF_SHAPES = [(2, 5, 64), (4, 16, 2048), (3, 9, 515)]
+# exact uplink bytes a round, n·Σ_u(ceil(p_u·b/8) + 5) + K·U·4, and the
+# packed payload of K clients, for full-width VGG-9 at K=20, n=4
+WANT_UPLINK = {8: 18_839_724, 4: 9_420_312}
+WANT_PAYLOAD = {8: 94_194_849, 4: 47_097_789}
 # H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -67,13 +86,16 @@ def main():
     from repro_torch.configs import vgg9_cifar10 as vgg9
     from repro_torch.core.aggregation import aggregate_stacked
     from repro_torch.core.selection import topn_divergence
-    from repro_torch.core.units import UnitMap, tree_leaves
+    from repro_torch.core.units import UnitMap, tree_leaves, tree_map
+    from repro_torch.core.wire import UNIT_HEADER_BYTES
     from repro_torch.data import (FederatedData, iid_partition,
                                   make_image_dataset)
-    from repro_torch.federated import (build_round_scan, build_round_vmap,
-                                       make_local_update, run_training,
+    from repro_torch.federated import (CompressionConfig, build_round_scan,
+                                       build_round_vmap, make_local_update,
+                                       make_strategy, run_training,
                                        sample_clients)
-    from repro_torch.kernels import _build, aggregate, divergence, ops
+    from repro_torch.kernels import (_build, aggregate, divergence, ops,
+                                     uplink)
     from repro_torch.kernels import ref as kref
     from repro_torch.models.cnn import classify_loss, init_params
     from repro_torch.optim import sgd
@@ -104,12 +126,12 @@ def main():
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    def compare(label, got, want):
+    def compare(label, got, want, tol=TOL):
         torch.cuda.synchronize()
         err = (got - want).abs()
         abs_err = float(err.max())
         rel_err = float((err / want.abs().clamp_min(1e-30)).max())
-        ok = bool(torch.allclose(got, want, **TOL))
+        ok = bool(torch.allclose(got, want, **tol))
         say(f"[kernel] {label}: max_abs_err={abs_err:.3e} "
             f"max_rel_err={rel_err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -141,6 +163,42 @@ def main():
         e = compare(f"masked_accumulate (1, {big}) in place {dn}", got, want)
         if dtype == torch.float32:
             main_err["masked_accumulate"] = e
+
+    def uplink_inputs(shape):
+        k_, r_, _ = shape
+        lv = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        return (lv, torch.rand((k_, r_), generator=gen, device=dev) + 1e-4,
+                torch.rand((k_, r_), generator=gen, device=dev))
+
+    big_uplink = (20, 1, big)                 # conv7.w of K=20 clients
+    main_err["fused_uplink"] = main_err["fused_uplink_ef"] = 0.0
+    for shape in UPLINK_SHAPES + [big_uplink]:
+        lv, sc, w = uplink_inputs(shape)
+        e = compare(f"fused_uplink {shape}", uplink.fused_uplink(lv, sc, w),
+                    kref.fused_uplink(lv, sc, w), UPLINK_TOL)
+        if shape == big_uplink:
+            main_err["fused_uplink"] = e
+    for shape in UPLINK_EF_SHAPES + [big_uplink]:
+        for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            lv, sc, w = uplink_inputs(shape)
+            gate = (torch.rand(shape[:2], generator=gen, device=dev)
+                    < 0.5).float()
+            v, e_old = randn(shape, dtype), randn(shape, dtype)
+            num, res = uplink.fused_uplink_ef(lv, sc, w, gate, v, e_old)
+            want_num, want_res = kref.fused_uplink_ef(lv, sc, w, gate, v,
+                                                      e_old)
+            e1 = compare(f"fused_uplink_ef {shape} {dn} num", num, want_num,
+                         UPLINK_TOL)
+            e2 = compare(f"fused_uplink_ef {shape} {dn} res", res, want_res,
+                         UPLINK_TOL)
+            off = gate == 0
+            if not torch.equal(res[off], e_old.float()[off]):
+                failures.append(f"fused_uplink_ef {shape} {dn}: gate == 0 "
+                                "rows do not keep e_old exactly")
+            if shape == big_uplink and dtype == torch.float32:
+                main_err["fused_uplink_ef"] = max(e1, e2)
+    del lv, sc, w, gate, v, e_old, num, res, want_num, want_res
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -170,29 +228,41 @@ def main():
     per_round_up = (fl_v.top_n * umap.total_bytes
                     + fl_v.clients_per_round * umap.num_units * 4)
 
-    def drive(fl, label):
+    def drive(fl, label, rounds=ROUNDS):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         params, log = run_training(params0, loss_fn, data, fl,
-                                   rounds=ROUNDS, seed=SEED, device=dev)
+                                   rounds=rounds, seed=SEED, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = ops.launch_counts()
         check_params(label, params)
-        if not all(np.isfinite(log.losses)) or len(log.losses) != ROUNDS:
+        if not all(np.isfinite(log.losses)) or len(log.losses) != rounds:
             fail(f"{label}: losses {log.losses}")
-        want_up = ROUNDS * per_round_up
-        if abs(log.meter.uplink_bytes - want_up) > 1e-6 * want_up:
-            fail(f"{label}: uplink {log.meter.uplink_bytes} B, expected "
-                 f"{want_up} B (n·model + K·U·4 per round)")
-        say(f"[{label}] run_training {ROUNDS} rounds: {wall:.3f} s "
-            f"({wall / ROUNDS:.3f} s/round incl. first-round warm-up); "
+        if fl.compression is None:
+            want_up = rounds * per_round_up
+            if abs(log.meter.uplink_bytes - want_up) > 1e-6 * want_up:
+                fail(f"{label}: uplink {log.meter.uplink_bytes} B, expected "
+                     f"{want_up} B (n·model + K·U·4 per round)")
+        else:   # the packed wire format's bytes are exact
+            bits = int(fl.compression.bits)
+            per_round = (fl.top_n * sum(math.ceil(p * bits / 8)
+                                        + UNIT_HEADER_BYTES
+                                        for p in umap.unit_params)
+                         + fl.clients_per_round * umap.num_units * 4)
+            if per_round != WANT_UPLINK[bits] or \
+                    log.meter.uplink_bytes != rounds * per_round:
+                fail(f"{label}: uplink {log.meter.uplink_bytes} B over "
+                     f"{rounds} rounds, expected exactly {rounds} x "
+                     f"{WANT_UPLINK[bits]} B (n·Σ(ceil(p·b/8)+5) + K·U·4)")
+        say(f"[{label}] run_training {rounds} rounds: {wall:.3f} s "
+            f"({wall / rounds:.3f} s/round incl. first-round warm-up); "
             f"losses {log.losses}; uplink {log.meter.uplink_bytes:.0f} B, "
             f"savings {log.meter.savings_frac:.4f}; launches {counts}")
-        return params, counts
+        return params, counts, log
 
-    p_vmap, counts_v = drive(fl_v, "vmap")
+    p_vmap, counts_v, _ = drive(fl_v, "vmap")
     if counts_v["sqdiff_rowsum"] == 0:
         fail("vmap rounds launched no sqdiff_rowsum kernel")
 
@@ -231,7 +301,7 @@ def main():
         fail("vmap round disagrees with the plain round")
 
     # ---- 5. scan rounds at full width ----------------------------------
-    p_scan, counts_s = drive(fl_s, "scan")
+    p_scan, counts_s, _ = drive(fl_s, "scan")
     if counts_s["masked_accumulate"] == 0:
         fail("scan rounds launched no masked_accumulate kernel")
     round_s = build_round_scan(loss_fn, umap, fl_s)
@@ -263,7 +333,104 @@ def main():
     say(f"[scan] after {ROUNDS} rounds, params vs vmap: max_abs_diff="
         f"{d3:.3e} (information only)")
 
-    # ---- 6. times ------------------------------------------------------
+    # ---- 6./7. the packed compressed uplink at full width ---------------
+    fl_a = vgg9.fl_config(compression=CompressionConfig(
+        bits=8, error_feedback=True))
+    fl_b = vgg9.fl_config(compression=CompressionConfig(bits=4))
+    divs_k = umap.divergence(locals_, params0)   # the same round's Eq. 3
+    sel_k = topn_divergence(divs_k, fl_v.top_n)
+    idx = torch.from_numpy(clients).to(dev)
+    recorded = {"fused_uplink": [], "fused_uplink_ef": []}
+
+    def recording(name):
+        plain = getattr(kref, name)
+
+        def run(*args):
+            recorded[name].append(args)
+            return plain(*args)
+        return run
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    def rel_l2(a, b):
+        num = sum(float(((x - y).double() ** 2).sum()) for x, y in
+                  zip(tree_leaves(a), tree_leaves(b)))
+        return (num / sum(float((x.double() ** 2).sum())
+                          for x in tree_leaves(a))) ** 0.5
+
+    def packed_checks(fl, label, counts, rounds, rows):
+        """One round of ``fl``: round_fn (kernels) against the same round
+        through the plain uplink kernels on the same locals; returns the
+        round function and its metrics."""
+        name = ("fused_uplink_ef" if fl.compression.error_feedback
+                else "fused_uplink")
+        if counts[name] != len(tree_leaves(params0)) * rounds:
+            fail(f"setting {label}: {counts[name]} {name} launches, "
+                 f"expected {len(tree_leaves(params0))} a round")
+        round_c = build_round_vmap(loss_fn, umap, fl)
+        new_c, m_c = round_c(params0, batch, sizes, rows)
+        strat = make_strategy(fl)
+        res_rows = None if rows is None else rows["client"]["residual"]
+        new_p, rows_p, wire_p = strat.uplink_round(
+            locals_, params0, umap, sel_k, divs_k, sizes, res_rows,
+            **{name: recording(name)})
+        if not torch.equal(m_c["selection"], sel_k):
+            fail(f"setting {label}: round selection differs from the plain "
+                 "round's")
+        pay_c, pay_p = m_c["wire"]["payload"], wire_p["payload"]
+        same_levels = torch.equal(pay_c.scales, pay_p.scales) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(pay_c.levels),
+                                              tree_leaves(pay_p.levels)))
+        d = max_diff(new_c, new_p)
+        say(f"[{label}] round vs the same round through the plain uplink "
+            f"kernels: identical levels and scales {same_levels}; new "
+            f"params max_abs_diff={d:.3e} (limit {EQUIV_TOL}); payload "
+            f"{m_c['wire']['nbytes']} B; comm uplink_total "
+            f"{float(m_c['comm']['uplink_total']):.0f} B")
+        if not same_levels or d > EQUIV_TOL:
+            fail(f"setting {label}: round disagrees with the plain round")
+        if rows_p is not None:
+            dr = max_diff(m_c["state"]["client"]["residual"], rows_p)
+            say(f"[{label}] residual rows vs plain: max_abs_diff={dr:.3e}")
+            if dr > 1e-6:
+                fail(f"setting {label}: residual rows disagree with plain")
+        bits = int(fl.compression.bits)
+        if m_c["wire"]["nbytes"] != WANT_PAYLOAD[bits] or \
+                float(m_c["comm"]["uplink_total"]) != WANT_UPLINK[bits]:
+            fail(f"setting {label}: payload {m_c['wire']['nbytes']} B or "
+                 f"uplink {float(m_c['comm']['uplink_total'])} B, expected "
+                 f"{WANT_PAYLOAD[bits]} and {WANT_UPLINK[bits]}")
+        return round_c, new_c, m_c
+
+    # setting A: int8 levels with error feedback
+    _, counts_a, log_a = drive(fl_a, "A")
+    store = log_a.final_state["client"]["residual"]
+    if any(s_.shape != (fl_a.num_clients,) + p_.shape or s_.dtype != p_.dtype
+           for s_, p_ in zip(tree_leaves(store), tree_leaves(params0))):
+        fail("setting A: the residual store is not (50, ...) in the "
+             "params' dtype")
+    rows_a = {"client": {"residual": tree_map(lambda l: l[idx], store)}}
+    round_a, new_a, m_a = packed_checks(fl_a, "A", counts_a, ROUNDS,
+                                          rows_a)
+    fl_l = vgg9.fl_config(compression=CompressionConfig(
+        bits=8, error_feedback=True, fused=False))
+    new_l, m_l = build_round_vmap(loss_fn, umap, fl_l)(params0, batch, sizes,
+                                                       rows_a)
+    r = rel_l2(new_a, new_l)
+    say(f"[A] packed round vs the legacy unfused chain: relative L2 "
+        f"{r:.3e} (limit 1e-4); identical selection "
+        f"{torch.equal(m_l['selection'], m_a['selection'])}")
+    if r >= 1e-4 or not torch.equal(m_l["selection"], m_a["selection"]):
+        fail("setting A: packed round disagrees with the legacy chain")
+
+    # setting B: int4 levels, no error feedback
+    _, counts_b, _ = drive(fl_b, "B", rounds=ROUNDS_B)
+    round_b, _, _ = packed_checks(fl_b, "B", counts_b, ROUNDS_B,
+                                     None)
+
+    # ---- 8. times ------------------------------------------------------
     flush = torch.empty(64 * 2**20, device=dev)     # 256 MB > 50 MB L2
 
     def device_ms(fn, reps=20):
@@ -340,17 +507,56 @@ def main():
     big_ma_lib, _ = device_ms(lambda: m7.addcmul_(w7[:, None], x7))
     big_ma_bound, _ = bound_ms(2 * nb(m7) + nb(x7) + nb(w7), 2 * m7.numel())
 
-    def round_ms(fn):
+    # fused_uplink_ef / fused_uplink: one setting-A / setting-B round's 34
+    # launches, with the arguments the round gave the kernels
+    ef_calls, up_calls = recorded["fused_uplink_ef"], recorded["fused_uplink"]
+
+    def ef_bytes(a):
+        lv, sc, w, g, v, e = a
+        return (nb(lv) + nb(sc) + nb(w) + nb(g) + nb(v) + nb(e)
+                + lv[0].numel() * 4 + lv.numel() * 4)     # num, res
+
+    def up_bytes(a):
+        lv, sc, w = a
+        return nb(lv) + nb(sc) + nb(w) + lv[0].numel() * 4
+
+    ef_nbytes = sum(ef_bytes(a) for a in ef_calls)
+    ef_bound, ef_by = bound_ms(ef_nbytes,
+                               sum(7 * a[0].numel() for a in ef_calls))
+    ef_ms, ef_host = device_ms(lambda: [uplink.fused_uplink_ef(*a)
+                                        for a in ef_calls])
+    ef_plain, _ = device_ms(lambda: [kref.fused_uplink_ef(*a)
+                                     for a in ef_calls])
+    e7 = max(ef_calls, key=lambda a: a[0].numel())
+    big_ef, _ = device_ms(lambda: uplink.fused_uplink_ef(*e7))
+    big_ef_bound, _ = bound_ms(ef_bytes(e7), 7 * e7[0].numel())
+    up_nbytes = sum(up_bytes(a) for a in up_calls)
+    up_bound, up_by = bound_ms(up_nbytes,
+                               sum(3 * a[0].numel() for a in up_calls))
+    up_ms, up_host = device_ms(lambda: [uplink.fused_uplink(*a)
+                                        for a in up_calls])
+    up_plain, _ = device_ms(lambda: [kref.fused_uplink(*a)
+                                     for a in up_calls])
+    lib_args = [(a[0].float(), a[1], a[2]) for a in up_calls]  # untimed
+    up_lib, _ = device_ms(lambda: [torch.einsum("kr,krc->rc", w * sc, lf)
+                                   for lf, sc, w in lib_args])
+    u7 = max(up_calls, key=lambda a: a[0].numel())
+    big_up, _ = device_ms(lambda: uplink.fused_uplink(*u7))
+    big_up_bound, _ = bound_ms(up_bytes(u7), 3 * u7[0].numel())
+    del lib_args
+
+    def round_ms(fn, *state):
         out = []
         for _ in range(3):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            fn(params0, batch, sizes)
+            fn(params0, batch, sizes, *state)
             torch.cuda.synchronize()
             out.append((time.perf_counter() - t) * 1e3)
         return statistics.median(out)
 
     rv_ms, rs_ms = round_ms(round_v), round_ms(round_s)
+    ra_ms, rb_ms = round_ms(round_a, rows_a), round_ms(round_b)
     sq_per_round_v = counts_v["sqdiff_rowsum"] // ROUNDS
     sq_per_round_s = counts_s["sqdiff_rowsum"] // ROUNDS
     ma_per_round = counts_s["masked_accumulate"] // ROUNDS
@@ -373,14 +579,36 @@ def main():
     say(f"[times] masked_accumulate, conv7.w alone {tuple(m7.shape)}: "
         f"kernel_ms={big_ma:.4f} bound_ms={big_ma_bound:.4f} "
         f"library_ms={big_ma_lib:.4f}")
+    ef_per_round = counts_a["fused_uplink_ef"] // ROUNDS
+    up_per_round = counts_b["fused_uplink"] // ROUNDS_B
+    say(f"[times] fused_uplink_ef, one setting-A round ({len(ef_calls)} "
+        f"launches, K={k}, {ef_nbytes / 1e6:.2f} MB): kernel_ms="
+        f"{ef_ms:.4f} bound_ms={ef_bound:.4f} ({ef_by}) plain_ms="
+        f"{ef_plain:.4f} library_ms=none (no single PyTorch call returns "
+        f"both the Eq. 5 numerator and the gated residual) "
+        f"host_enqueue_ms={ef_host:.4f}; launches per round: "
+        f"{ef_per_round}")
+    say(f"[times] fused_uplink_ef, conv7.w alone {tuple(e7[0].shape)}: "
+        f"kernel_ms={big_ef:.4f} bound_ms={big_ef_bound:.4f}")
+    say(f"[times] fused_uplink, one setting-B round ({len(up_calls)} "
+        f"launches, K={k}, {up_nbytes / 1e6:.2f} MB): kernel_ms="
+        f"{up_ms:.4f} bound_ms={up_bound:.4f} ({up_by}) plain_ms="
+        f"{up_plain:.4f} library_ms={up_lib:.4f} (torch.einsum"
+        f"(\"kr,krc->rc\", w*s, levels_f32); the int8->f32 conversion of "
+        f"the levels is not timed) host_enqueue_ms={up_host:.4f}; "
+        f"launches per round: {up_per_round}")
+    say(f"[times] fused_uplink, conv7.w alone {tuple(u7[0].shape)}: "
+        f"kernel_ms={big_up:.4f} bound_ms={big_up_bound:.4f}")
     say(f"[times] round wall-clock (median of 3, after run_training): "
-        f"vmap {rv_ms:.3f} ms, scan {rs_ms:.3f} ms ({smi})")
+        f"vmap {rv_ms:.3f} ms, scan {rs_ms:.3f} ms, setting A {ra_ms:.3f} "
+        f"ms, setting B {rb_ms:.3f} ms ({smi})")
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/divergence.cu",
          "replaces": "src/repro/kernels/divergence.py:27",
-         "launches": counts_v["sqdiff_rowsum"] + counts_s["sqdiff_rowsum"],
+         "launches": sum(c["sqdiff_rowsum"]
+                         for c in (counts_v, counts_s, counts_a, counts_b)),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
          "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
          "library_ms": None},
@@ -392,6 +620,20 @@ def main():
          "max_abs_err": main_err["masked_accumulate"], "ms": ma_ms,
          "plain_ms": ma_plain, "bound_ms": ma_bound, "bound_by": ma_by,
          "library_ms": ma_lib},
+        {"name": "fused_uplink", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/uplink.cu",
+         "replaces": "src/repro/kernels/uplink.py:82",
+         "launches": counts_b["fused_uplink"],
+         "max_abs_err": main_err["fused_uplink"], "ms": up_ms,
+         "plain_ms": up_plain, "bound_ms": up_bound, "bound_by": up_by,
+         "library_ms": up_lib},
+        {"name": "fused_uplink_ef", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/uplink.cu",
+         "replaces": "src/repro/kernels/uplink.py:117",
+         "launches": counts_a["fused_uplink_ef"],
+         "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
+         "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
+         "library_ms": None},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

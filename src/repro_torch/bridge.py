@@ -4,11 +4,14 @@ The two packages draw different initial weights from the same seed (JAX's
 threefry vs ``torch.Generator``), so weights cross only through these
 functions: ``params_from_numpy(jax.tree.map(np.asarray, jax_params))`` gives
 the port the reference's exact f32 weights, with the same key paths and
-layouts (conv ``w`` HWIO, fc ``w`` ``(fc_in, classes)``).
+layouts (conv ``w`` HWIO, fc ``w`` ``(fc_in, classes)``). Strategy state
+(``{"client": {"residual": tree}}`` and the like) crosses the same way
+through :func:`state_from_numpy` / :func:`state_to_numpy`, so a test can
+hand the port the reference's error-feedback residual rows.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -29,3 +32,14 @@ def params_to_numpy(tree: Pytree) -> Pytree:
     if isinstance(tree, dict):
         return {key: params_to_numpy(v) for key, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def state_from_numpy(state: Optional[dict], device="cuda") -> Optional[dict]:
+    """Strategy state (nested dict of array-likes, or None) -> tensors on
+    ``device``."""
+    return None if state is None else params_from_numpy(state, device)
+
+
+def state_to_numpy(state: Optional[dict]) -> Optional[dict]:
+    """Strategy state (nested dict of tensors, or None) -> numpy arrays."""
+    return None if state is None else params_to_numpy(state)

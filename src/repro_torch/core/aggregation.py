@@ -9,9 +9,11 @@ Two execution layouts:
   ``masked_accumulate`` kernel.
 
 Both compute Eq. 5 ``Ĝ_u = Σ_k s[k,u]·w_k·Θ_{k,u} / Σ_m s[m,u]·w_m``; with
-``s ≡ 1`` it is FedAvg (Eq. 1). The client-sharded reductions of the
-reference (``axis_name``, ``stacked_psum_*``, ``hierarchical_psum``) wait
-for the mesh slice (ROADMAP Queue 1, item 11).
+``s ≡ 1`` it is FedAvg (Eq. 1). :func:`stacked_psum_finalize` is the
+epilogue of an additive numerator (the packed uplink builds one). The
+client-sharded reductions of the reference (``axis_name``,
+``stacked_psum_parts``, ``hierarchical_psum``) wait for the mesh slice
+(ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -86,6 +88,36 @@ def fedavg_stacked(stacked_params: Pytree, data_sizes: torch.Tensor) -> Pytree:
         return torch.sum(leaf.float() * wx, dim=0).to(leaf.dtype)
 
     return tree_map(combine, stacked_params)
+
+
+def stacked_psum_finalize(partials: Pytree, denom: torch.Tensor,
+                          umap: UnitMap, stacked_params: Pytree,
+                          fallback: Pytree) -> Pytree:
+    """Epilogue of Eq. 5 over additive numerators: divide the f32
+    ``partials`` by the per-unit ``denom``, fall back to ``fallback`` (the
+    previous global model) for units with no uploads, and cast back to the
+    parameter dtype. ``stacked_params`` is only read for leaf dtypes (its
+    leaves need not carry a client axis)."""
+    safe = torch.where(denom > 0, denom, torch.ones_like(denom))
+
+    def finalize_one(key: str):
+        off, n = umap.spans[key]
+        seg_d, seg_s = denom[off:off + n], safe[off:off + n]
+
+        def fin(p, leaf, fb):
+            if n > 1:
+                shape = (n,) + (1,) * (p.ndim - 1)
+                out = p / seg_s.reshape(shape)
+                alive = (seg_d > 0).reshape(shape)
+            else:
+                out = p / seg_s[0]
+                alive = seg_d[0] > 0
+            return torch.where(alive, out, fb.float()).to(leaf.dtype)
+
+        return tree_map(fin, partials[key], stacked_params[key],
+                        fallback[key])
+
+    return {key: finalize_one(key) for key in stacked_params}
 
 
 # ----------------------------------------------------------------------

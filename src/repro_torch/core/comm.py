@@ -5,9 +5,11 @@ With top-n-per-layer selection only ``n/K`` of the layer payloads travel
 from clients to the server, plus a small divergence-feedback vector
 (K · U float32 scalars per round). :func:`round_comm` is a function of the
 selection matrix; :class:`CommMeter` keeps totals across rounds on the
-host. Repricing overrides (quantized or packed uplinks) and the
-client-sharded ``axis_name`` wait for their slices (ROADMAP Queue 1,
-items 9 and 11).
+host. A compressed uplink reprices the payload through
+``param_bytes_override`` (the legacy chain's uniform b/8 bytes a
+parameter) or ``unit_bytes_override`` (the packed wire format's per-unit
+bytes). The client-sharded ``axis_name`` waits for the mesh slice (ROADMAP
+Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -21,10 +23,19 @@ DIVERGENCE_SCALAR_BYTES = 4  # float32 feedback scalars
 
 
 def round_comm(selection: torch.Tensor, umap: UnitMap, *,
-               divergence_feedback: bool = True) -> dict:
+               divergence_feedback: bool = True,
+               param_bytes_override: float | None = None,
+               unit_bytes_override: torch.Tensor | None = None) -> dict:
     """Per-round communication in bytes, as 0-d float32 tensors.
 
-    selection: (K, U) ∈ {0,1}. Returns:
+    selection: (K, U) ∈ {0,1}. ``param_bytes_override`` reprices every
+    parameter uniformly (legacy quantized pricing, e.g. 1.0 for int8).
+    ``unit_bytes_override`` — a (U,) per-unit byte vector, usually
+    ``PackedPayload.unit_wire_bytes`` — takes precedence.
+
+    The payload is summed in float64 and rounded to f32 once, so it is the
+    f32 nearest the exact byte count (the reference sums in f32, which at
+    full-width VGG-9 can land a few bytes off). Returns:
       uplink_payload   — Σ_{k,u} s[k,u]·bytes(u)        (selected layers)
       uplink_feedback  — K·U·4 if divergence feedback is on (FedLDF only)
       uplink_total
@@ -34,8 +45,15 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
     """
     k = selection.shape[0]
     dev = selection.device
-    unit_bytes = umap.unit_bytes_tensor(dev)
-    payload = torch.sum(selection * unit_bytes[None, :])
+    if unit_bytes_override is not None:
+        unit_bytes = torch.as_tensor(unit_bytes_override,
+                                     dtype=torch.float32, device=dev)
+    else:
+        scale = (1.0 if param_bytes_override is None
+                 else param_bytes_override / 4.0)
+        unit_bytes = umap.unit_bytes_tensor(dev) * scale
+    payload = torch.sum(selection.double()
+                        * unit_bytes.double()[None, :]).float()
     feedback = torch.tensor(
         k * umap.num_units * DIVERGENCE_SCALAR_BYTES if divergence_feedback
         else 0.0, dtype=torch.float32, device=dev)

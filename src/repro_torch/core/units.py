@@ -181,6 +181,25 @@ class UnitMap:
                 kops.masked_accumulate(a2, x.reshape(n, -1), w, out=a2)
         return acc
 
+    def expand_to_leaves(self, tree: Pytree,
+                         per_unit: torch.Tensor) -> Pytree:
+        """A tree like ``tree`` whose leaves hold their unit's value
+        broadcast to the leaf shape, in the leaf's dtype (the legacy
+        compression chain's error-feedback gate)."""
+        out = {}
+        for key in tree:
+            off, n = self.spans[key]
+            seg = per_unit[off:off + n]
+            if n > 1:
+                def mk(l, seg=seg, n=n):
+                    return seg.to(l.dtype).reshape(
+                        (n,) + (1,) * (l.ndim - 1)).expand(l.shape)
+            else:
+                def mk(l, seg=seg):
+                    return seg[0].to(l.dtype).expand(l.shape)
+            out[key] = tree_map(mk, tree[key])
+        return out
+
 
 # ----------------------------------------------------------------------
 # Generic tree helpers.

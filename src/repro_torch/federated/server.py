@@ -14,9 +14,17 @@ Two per-round execution modes give the same aggregation semantics:
   accumulator through the ``masked_accumulate`` kernel). Memory is
   O(1) clients.
 
+``FLConfig(compression=CompressionConfig(...))`` quantizes every uploaded
+layer into int8 or int4 levels plus a per-unit scale, with optional
+client-side error feedback: the vmap round then reduces the packed payload
+through the fused uplink kernels (``strategy.uplink_round``), or through
+the legacy unfused chain with ``CompressionConfig(fused=False)``. The scan
+round refuses compression, as the reference's does.
+
 :func:`run_training` is the host-loop driver with the reference's numpy
 ("host") sampler, so one seed gives the same clients and batches as
-``repro.federated.run_training(sampler="host")``.
+``repro.federated.run_training(sampler="host")``. It threads strategy
+state across rounds (the error-feedback residual store is one).
 
 Numerics: the round builders switch TF32 off for cuDNN convolutions and
 CUDA matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -27,7 +35,9 @@ rounds run in full f32.
 
 Not yet ported (ROADMAP Queue 1): the device-resident multi-round engine
 ``run_training_scan``, the JAX-key sampler, the compiled-callable cache,
-resume, mesh sharding, compression, trainable partitions and telemetry.
+resume (``start_round``/``server_state``), mesh sharding, the deprecated
+flat ``quantize_bits``/``error_feedback`` knobs, trainable partitions and
+telemetry.
 """
 from __future__ import annotations
 
@@ -39,13 +49,24 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
-from repro_torch.core.units import UnitMap, tree_map
+from repro_torch.core.units import UnitMap, tree_map, tree_stack_index
+from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.client import make_local_update
 from repro_torch.federated.sampling import sample_clients
 from repro_torch.federated.strategies import get_strategy_cls, make_strategy
 from repro_torch.optim.opt import Optimizer, sgd
 
 Pytree = Any
+
+# Raised when compression=CompressionConfig(...) meets the sequential-client
+# scan round; word for word the reference's message.
+_SCAN_COMPRESSION_MSG = (
+    "compression=CompressionConfig(...) is not supported by the "
+    "sequential-client scan engine (mode='scan'): the packed quantized "
+    "uplink reduces a stacked client axis. Supported drivers: mode='vmap' "
+    "on a single device, the mesh-sharded round (FLConfig(mesh=...)), and "
+    "both multi-round drivers (run_training / run_training_scan) on top of "
+    "them.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +78,10 @@ class FLConfig:
     local_steps: int = 1
     lr: float = 0.05
     mode: str = "vmap"             # vmap | scan
+    # uplink compression policy (repro_torch.core.wire.CompressionConfig):
+    # packed quantized uploads + optional error feedback + divergence-driven
+    # bit allocation (bits="auto"). None = f32 uploads.
+    compression: Optional[CompressionConfig] = None
     batch_per_client: int = 32
 
     def __post_init__(self):
@@ -69,9 +94,20 @@ class FLConfig:
         if not 1 <= self.top_n <= self.clients_per_round:
             raise ValueError(f"top_n={self.top_n} out of range for "
                              f"K={self.clients_per_round}")
-        if self.mode == "scan" and not scls.supports_scan:
+        comp = self.compression
+        if comp is not None and not isinstance(comp, CompressionConfig):
+            raise TypeError(
+                "FLConfig.compression must be a repro_torch.core.wire."
+                f"CompressionConfig or None, got {type(comp)}")
+        if comp is not None and not scls.supports_quantize:
             raise ValueError(
-                f"strategy {self.algo!r} declares supports_scan=False")
+                f"strategy {self.algo!r} declares supports_quantize=False")
+        if self.mode == "scan":
+            if not scls.supports_scan:
+                raise ValueError(
+                    f"strategy {self.algo!r} declares supports_scan=False")
+            if comp is not None:
+                raise NotImplementedError(_SCAN_COMPRESSION_MSG)
 
 
 def _full_fp32() -> None:
@@ -89,8 +125,12 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     ``round_fn(params, batch, data_sizes, state=None) -> (new_params,
     metrics)`` with batch leaves ``(K, B, ...)`` and ``metrics`` holding
     ``loss``, ``comm``, ``selection``, ``divergence`` (the (K, U) Eq. 3
-    matrix, or None) and, when a ``state`` is given, the updated
-    ``state``."""
+    matrix, or None), ``wire`` (the packed payload's accounting, or None)
+    and, when a ``state`` is given, the updated ``state``.
+
+    With error feedback ``state`` is required: its client entry
+    ``"residual"`` holds the participants' (K, ...) residual rows (see
+    :func:`run_training`)."""
     _full_fp32()
     opt = opt or sgd(flcfg.lr)
     train_clients = torch.func.vmap(
@@ -107,11 +147,51 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
         selection = strategy.select_with_state(
             state, divs, None, k, umap.num_units, flcfg.top_n,
             data_sizes.device)
-        new_params = strategy.aggregate(locals_, umap, selection, data_sizes,
-                                        params)
-        metrics = {"loss": losses.mean(),
-                   "comm": strategy.comm_profile(selection, umap),
-                   "selection": selection, "divergence": divs}
+        res_rows = None
+        if strategy.tracks_residuals:
+            if state is None:
+                raise ValueError(
+                    "error feedback needs the participants' residual rows: "
+                    "pass state=strategy.init_state(...) rows (run_training "
+                    "does)")
+            res_rows = state["client"]["residual"]
+
+        wire = None
+        if strategy.packed_upload:
+            # packed wire-format uplink: the strategy quantizes the client
+            # deltas into PackedPayload buffers and reduces them through
+            # the fused uplink kernels, one launch per leaf
+            new_params, new_rows, wire = strategy.uplink_round(
+                locals_, params, umap, selection, divs, data_sizes,
+                res_rows)
+            comm = strategy.comm_profile(
+                selection, umap, unit_bytes_override=wire["unit_bytes"])
+        else:
+            uploads, new_rows = locals_, None
+            if strategy.transforms_upload:
+                # e.g. quantized deltas: the server reconstructs
+                # Ĝ + dequant(Q(Δ + e)) client by client; error-feedback
+                # residuals advance only where a layer was uploaded
+                outs = [strategy.transform_upload(
+                    tree_stack_index(locals_, i), params, umap,
+                    None if res_rows is None
+                    else tree_stack_index(res_rows, i)) for i in range(k)]
+                uploads = tree_map(lambda *ls: torch.stack(ls),
+                                   *(o[0] for o in outs))
+                if strategy.tracks_residuals:
+                    rows = [strategy.update_residual(
+                        outs[i][1], tree_stack_index(res_rows, i),
+                        selection[i], umap, params) for i in range(k)]
+                    new_rows = tree_map(lambda *ls: torch.stack(ls), *rows)
+            new_params = strategy.aggregate(uploads, umap, selection,
+                                            data_sizes, params)
+            comm = strategy.comm_profile(selection, umap)
+        if strategy.tracks_residuals:
+            state = {**state, "client": {**state["client"],
+                                         "residual": new_rows}}
+        metrics = {"loss": losses.mean(), "comm": comm,
+                   "selection": selection, "divergence": divs,
+                   "wire": wire}
         if state is not None:
             metrics["state"] = strategy.update_state(state, selection, divs,
                                                      umap)
@@ -131,6 +211,8 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
     the reference's stacked phase 2 for other aggregations waits for FedADP
     (ROADMAP Queue 1, item 6).
     """
+    if flcfg.compression is not None:
+        raise NotImplementedError(_SCAN_COMPRESSION_MSG)
     _full_fp32()
     strategy = make_strategy(flcfg)
     if not strategy.supports_scan:
@@ -205,6 +287,47 @@ class TrainLog:
     uplink_mb: list = dataclasses.field(default_factory=list)
     meter: comm_mod.CommMeter = dataclasses.field(
         default_factory=comm_mod.CommMeter)
+    # strategy state after the last round (None for stateless strategies)
+    final_state: Optional[dict] = None
+
+
+# Strategy state is ``{"client": {name: (N, ...) store}, "global": {name:
+# tree}}`` or None (see FLStrategy.init_state). The helpers below are the
+# only state plumbing run_training needs; the EF residual store is just the
+# client entry named "residual" that the quantize wrapper declares.
+def _scatter_rows(store: Pytree, clients: torch.Tensor,
+                  rows: Pytree) -> Pytree:
+    """Write the participants' rows back into the (N, ...) store **in
+    place** (run_training owns the store; a functional copy would move the
+    whole N × model store every round). The explicit cast keeps each
+    leaf's own dtype: the EF arithmetic runs in f32."""
+    def put(full, r):
+        full[clients] = r.to(full.dtype)
+        return full
+
+    return tree_map(put, store, rows)
+
+
+def _state_round_view(state: Optional[dict], clients) -> Optional[dict]:
+    """Round-local view of the state: client stores are replaced by the
+    participants' gathered ``(K, ...)`` rows; global entries pass through."""
+    if not state or not state.get("client"):
+        return state
+    return {**state, "client": {n_: tree_map(lambda l: l[clients], s)
+                                for n_, s in state["client"].items()}}
+
+
+def _state_scatter(state: Optional[dict], new_state: dict,
+                   clients) -> Optional[dict]:
+    """Persist a round's updated state: client rows are scattered back into
+    the ``(N, ...)`` stores, global entries are replaced wholesale."""
+    if state is None:
+        return None
+    out = dict(new_state)
+    if state.get("client"):
+        out["client"] = {n_: _scatter_rows(state["client"][n_], clients, r)
+                         for n_, r in new_state["client"].items()}
+    return out
 
 
 def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
@@ -219,9 +342,15 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     gathering from ``fldata`` (a :class:`~repro_torch.data.FederatedData`)
     with the reference's ``sampler="host"`` stream, a round on ``device``
     (the card unless the caller asks for ``"cpu"``), and one host pull of
-    the loss and comm stats. ``params`` are moved to ``device``. The
-    reference's ``sampler="jax"`` key schedule is still to be ported
-    (ROADMAP Queue 1, item 7).
+    the loss and comm stats. ``params`` are moved to ``device``.
+
+    Strategy state (the error-feedback residual store, any
+    :meth:`FLStrategy.init_state` schema) is declared once and threaded
+    through the rounds: client-entry rows are gathered before a round and
+    scattered back after, and the final state lands in
+    ``log.final_state``. The reference's ``sampler="jax"`` key schedule
+    and its resume arguments are still to be ported (ROADMAP Queue 1,
+    item 7).
     """
     if sampler != "host":
         raise NotImplementedError(
@@ -230,6 +359,7 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     params = tree_map(lambda l: l.to(device), params)
     umap = UnitMap.build(params)
     round_fn = build_round_fn(loss_fn, umap, flcfg)
+    state = make_strategy(flcfg).init_state(params, flcfg.num_clients)
     log = TrainLog()
     rng = np.random.default_rng(seed)
     all_sizes = fldata.data_sizes()
@@ -240,7 +370,13 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         batch = {name: torch.from_numpy(v).to(device)
                  for name, v in batch.items()}
         sizes = torch.from_numpy(all_sizes[clients]).to(device)
-        params, metrics = round_fn(params, batch, sizes)
+        if state is not None:
+            idx = torch.from_numpy(clients).to(device)
+            params, metrics = round_fn(params, batch, sizes,
+                                       _state_round_view(state, idx))
+            state = _state_scatter(state, metrics["state"], idx)
+        else:
+            params, metrics = round_fn(params, batch, sizes)
         log.meter.update(metrics["comm"])
         log.rounds.append(t)
         loss_t = float(metrics["loss"])     # device sync
@@ -249,4 +385,5 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         if eval_fn is not None and (t % eval_every == 0 or t == rounds - 1):
             err = float(eval_fn(params))
             log.test_errors.append((t, err, log.meter.uplink_bytes))
+    log.final_state = state
     return params, log

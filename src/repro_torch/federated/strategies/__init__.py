@@ -8,11 +8,18 @@ from repro_torch.federated.strategies.base import (FLStrategy,
                                                    register_strategy,
                                                    unregister_strategy)
 from repro_torch.federated.strategies import builtin  # noqa: F401 (registers)
+from repro_torch.federated.strategies.compression import QuantizedUpload
 
-__all__ = ["FLStrategy", "get_strategy_cls", "make_strategy",
-           "register_strategy", "unregister_strategy"]
+__all__ = ["FLStrategy", "QuantizedUpload", "get_strategy_cls",
+           "make_strategy", "register_strategy", "unregister_strategy"]
 
 
 def make_strategy(flcfg) -> FLStrategy:
-    """The strategy instance for ``flcfg.algo``."""
-    return get_strategy_cls(flcfg.algo)(flcfg)
+    """The strategy instance for ``flcfg.algo``, wrapped in the
+    quantize(+EF) :class:`QuantizedUpload` when ``flcfg.compression`` is
+    set."""
+    strat = get_strategy_cls(flcfg.algo)(flcfg)
+    comp = getattr(flcfg, "compression", None)
+    if comp is not None:
+        strat = QuantizedUpload(strat, flcfg, comp)
+    return strat

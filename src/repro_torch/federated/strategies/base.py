@@ -17,18 +17,46 @@ federated round behind a fixed set of hooks, so the round builders in
   state transition (identity by default).
 - ``aggregate(uploads, umap, selection, data_sizes, global_params)`` — the
   server-side reduction over client-stacked uploads; the default is Eq. 5.
-- ``comm_profile(selection, umap) -> dict`` — per-round communication.
+- ``psum_finalize(parts, denom, umap, params, fallback)`` — the epilogue
+  of Eq. 5 over additive numerators (the packed uplink's).
+- ``transform_upload(local, global_params, umap, residual) -> (upload,
+  candidate_residual)`` — per-client payload transform (identity by
+  default; the legacy compression chain quantizes here). Only consulted
+  when :attr:`transforms_upload` is set.
+- ``update_residual(cand_res, old_res, sel_row, umap, global_params)`` —
+  per-client error-feedback residual update, gated on the selection row.
+  Only consulted when :attr:`tracks_residuals` is set.
+- ``uplink_round(locals_, global_params, umap, selection, divs,
+  data_sizes, res_rows) -> (new_params, new_res_rows, wire)`` — the packed
+  uplink: stacked locals become a packed wire payload reduced through the
+  fused uplink kernels. Only consulted when :attr:`packed_upload` is set.
+- ``comm_profile(selection, umap, param_bytes_override=None,
+  unit_bytes_override=None) -> dict`` — per-round communication; the
+  overrides reprice a compressed payload.
+
+Cross-round state: ``init_state(params, num_clients) -> state | None``
+declares it once before round 0 (``None``, the default, is stateless). A
+stateful strategy returns ``{"client": {name: store}, "global": {name:
+tree}}``; each client store's leaves carry a leading ``(num_clients,)``
+axis, and run_training hands the round the participants' rows only. The
+error-feedback residual store is the client entry ``"residual"`` that the
+quantize wrapper declares.
 
 Capability flags read by ``FLConfig`` and the engines:
 
 - ``needs_divergence`` — the engine computes the Eq. 3 divergence matrix
   (and accounts its feedback uplink) before calling ``select``.
 - ``supports_scan`` — the strategy can run under ``mode="scan"``.
+- ``supports_quantize`` — the quantize(+EF) wrapper may be composed on top
+  (``FLConfig(compression=CompressionConfig(...))``).
 - ``eq5_weighted`` — aggregation is exactly Eq. 5 over the selection
   matrix, so the scan round may stream it through the accumulator.
+- ``transforms_upload``, ``tracks_residuals``, ``packed_upload`` — engine
+  dispatch for the hooks above.
 
-The reference's mesh, compression and packed-uplink hooks and its
-cross-round state stores wait for their slices (ROADMAP Queue 1).
+The reference's mesh hooks (``supports_mesh``, ``psum_parts``,
+``uplink_psum_parts``, ``state_specs``) and telemetry taps wait for their
+slices (ROADMAP Queue 1, items 8 and 11).
 """
 from __future__ import annotations
 
@@ -55,10 +83,19 @@ class FLStrategy:
     # ---- capability flags (see module docstring) ----
     needs_divergence: bool = False
     supports_scan: bool = True
+    supports_quantize: bool = True
     eq5_weighted: bool = True
+    # ---- engine dispatch flags ----
+    transforms_upload: bool = False
+    tracks_residuals: bool = False
+    packed_upload: bool = False
 
     def __init__(self, cfg):
         self.cfg = cfg   # the FLConfig (strategies read knobs from it)
+
+    def init_state(self, params: Pytree, num_clients: int) -> Optional[dict]:
+        """Declare cross-round state; ``None`` (default) is stateless."""
+        return None
 
     def select_with_state(self, state: Optional[dict],
                           divs: Optional[torch.Tensor], generator, k: int,
@@ -77,15 +114,48 @@ class FLStrategy:
                n: int, device) -> torch.Tensor:
         raise NotImplementedError
 
+    def transform_upload(self, local: Pytree, global_params: Pytree,
+                         umap: UnitMap, residual: Optional[Pytree]
+                         ) -> tuple[Pytree, Optional[Pytree]]:
+        return local, None
+
+    def update_residual(self, cand_res: Pytree, old_res: Optional[Pytree],
+                        sel_row: torch.Tensor, umap: UnitMap,
+                        global_params: Pytree) -> Pytree:
+        raise NotImplementedError
+
     def aggregate(self, uploads: Pytree, umap: UnitMap,
                   selection: torch.Tensor, data_sizes: torch.Tensor,
                   global_params: Pytree) -> Pytree:
         return agg.aggregate_stacked(uploads, umap, selection, data_sizes,
                                      fallback=global_params)
 
-    def comm_profile(self, selection: torch.Tensor, umap: UnitMap) -> dict:
+    def psum_finalize(self, parts: Pytree, denom: torch.Tensor,
+                      umap: UnitMap, params: Pytree,
+                      fallback: Pytree) -> Pytree:
+        return agg.stacked_psum_finalize(parts, denom, umap, params,
+                                         fallback)
+
+    def uplink_round(self, locals_: Pytree, global_params: Pytree,
+                     umap: UnitMap, selection: torch.Tensor,
+                     divs: Optional[torch.Tensor], data_sizes: torch.Tensor,
+                     res_rows: Optional[Pytree]
+                     ) -> tuple[Pytree, Optional[Pytree], dict]:
+        """Packed round: stacked client ``locals_`` → ``(new_global_params,
+        new_residual_rows, wire)``, where ``wire`` holds the payload's
+        accounting (``unit_bytes`` (U,), ``bits`` (U,), ``nbytes``), fed to
+        :meth:`comm_profile` through ``unit_bytes_override``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} sets packed_upload but does not "
+            "implement uplink_round")
+
+    def comm_profile(self, selection: torch.Tensor, umap: UnitMap,
+                     param_bytes_override: float | None = None,
+                     unit_bytes_override: torch.Tensor | None = None) -> dict:
         return comm_mod.round_comm(
-            selection, umap, divergence_feedback=self.needs_divergence)
+            selection, umap, divergence_feedback=self.needs_divergence,
+            param_bytes_override=param_bytes_override,
+            unit_bytes_override=unit_bytes_override)
 
 
 # ======================================================================

@@ -2,10 +2,12 @@
 
 - divergence.py : per-row Σ(a−b)² (Eq. 3), ``csrc/divergence.cu``.
 - aggregate.py  : ``acc + w[:, None]·x`` (Eq. 5), ``csrc/aggregate.cu``.
+- uplink.py     : packed-uplink dequantization + Eq. 5 numerator (+ error
+                  feedback), ``csrc/uplink.cu``.
 - ref.py        : plain PyTorch versions (ground truth + CPU path).
 - ops.py        : dispatch on the tensor's device, launch counts.
 - _build.py     : ``nvcc`` at first use, ``ctypes`` binding.
 """
-from repro_torch.kernels import aggregate, divergence, ops, ref
+from repro_torch.kernels import aggregate, divergence, ops, ref, uplink
 
-__all__ = ["aggregate", "divergence", "ops", "ref"]
+__all__ = ["aggregate", "divergence", "ops", "ref", "uplink"]

@@ -13,6 +13,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import aggregate as _aggregate
 from repro_torch.kernels import divergence as _divergence
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import uplink as _uplink
+
+# Every kernel the port launches, as its launch counter names it.
+KERNELS = ("sqdiff_rowsum", "masked_accumulate", "fused_uplink",
+           "fused_uplink_ef")
 
 
 def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -31,10 +36,28 @@ def masked_accumulate(acc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return _ref.masked_accumulate(acc, x, w, out)
 
 
+def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """(K, R, C) int8, (K, R), (K, R) -> (R, C) float32
+    ``Σ_k w[k,r]·scales[k,r]·levels[k,r,:]``."""
+    if levels.device.type == "cuda":
+        return _uplink.fused_uplink(levels, scales, w)
+    return _ref.fused_uplink(levels, scales, w)
+
+
+def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
+                    w: torch.Tensor, gate: torch.Tensor, v: torch.Tensor,
+                    e_old: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fused_uplink` plus the gated error-feedback residual
+    ``gate·(v − recon) + (1 − gate)·e_old`` (K, R, C) float32."""
+    if levels.device.type == "cuda":
+        return _uplink.fused_uplink_ef(levels, scales, w, gate, v, e_old)
+    return _ref.fused_uplink_ef(levels, scales, w, gate, v, e_old)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: _build.LAUNCHES[name]
-            for name in ("sqdiff_rowsum", "masked_accumulate")}
+    return {name: _build.LAUNCHES[name] for name in KERNELS}
 
 
 def reset_launch_counts() -> None:

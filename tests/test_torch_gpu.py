@@ -15,11 +15,13 @@ import numpy as np  # noqa: E402
 from repro_torch.core.units import UnitMap, tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import (FederatedData, iid_partition,  # noqa: E402
                               make_image_dataset)
-from repro_torch.federated import (FLConfig, build_round_fn,  # noqa: E402
+from repro_torch.federated import (CompressionConfig, FLConfig,  # noqa: E402
+                                   build_round_fn, make_strategy,
                                    run_training)
 from repro_torch.kernels import aggregate as tka  # noqa: E402
 from repro_torch.kernels import divergence as tkd  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import uplink as tku  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -29,6 +31,11 @@ SHAPES = [(1, 1), (1, 37), (4, 1000), (8, 2048), (9, 2049), (48, 5000),
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"rtol": 3e-3, "atol": 1e-5}              # tests/test_kernels.py:33,45
 EQUIV_TOL = 2e-5                  # benchmarks/round_engine_bench.py:59
+# tests/test_wire.py:174-175 and :191, plus VGG-9 conv7.w at K = 20
+UPLINK_SHAPES = [(1, 1, 1), (3, 7, 129), (4, 16, 2048), (5, 33, 2049),
+                 (20, 1, 2359296)]
+UPLINK_EF_SHAPES = [(2, 5, 64), (4, 16, 2048), (3, 9, 515),
+                    (20, 1, 2359296)]
 CFG = cnn.VGGConfig().reduced()
 
 
@@ -94,8 +101,112 @@ def test_cuda_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         tka.masked_accumulate(a, a.t().contiguous().t(),
                               torch.ones(4, device=cuda))
-    assert ops.launch_counts() == {"sqdiff_rowsum": 0,
-                                   "masked_accumulate": 0}
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def _uplink_inputs(shape, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    k, r, _ = shape
+    levels = torch.randint(-127, 128, shape, generator=g, device=device,
+                           dtype=torch.int8)
+    scales = torch.rand((k, r), generator=g, device=device) + 1e-4
+    w = torch.rand((k, r), generator=g, device=device)
+    return g, levels, scales, w
+
+
+@pytest.mark.parametrize("shape", UPLINK_SHAPES)
+def test_cuda_fused_uplink_matches_plain_bitwise(cuda, shape):
+    """Each product and sum is rounded on its own, in ascending k, as the
+    plain version does: the two agree bit for bit."""
+    _, levels, scales, w = _uplink_inputs(shape, cuda, sum(shape))
+    torch.testing.assert_close(ops.fused_uplink(levels, scales, w),
+                               ref.fused_uplink(levels, scales, w),
+                               rtol=0, atol=0)
+    assert ops.launch_counts()["fused_uplink"] == 1
+
+
+@pytest.mark.parametrize("shape", UPLINK_EF_SHAPES)
+@pytest.mark.parametrize("v_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("e_dtype", ["f32", "bf16"])
+def test_cuda_fused_uplink_ef_matches_plain_bitwise(cuda, shape, v_dtype,
+                                                    e_dtype):
+    g, levels, scales, w = _uplink_inputs(shape, cuda, shape[2])
+    gate = (torch.rand(shape[:2], generator=g, device=cuda) < 0.5).float()
+    v = torch.randn(shape, generator=g, device=cuda, dtype=DTYPES[v_dtype])
+    e = torch.randn(shape, generator=g, device=cuda, dtype=DTYPES[e_dtype])
+    num, res = ops.fused_uplink_ef(levels, scales, w, gate, v, e)
+    want_num, want_res = ref.fused_uplink_ef(levels, scales, w, gate, v, e)
+    torch.testing.assert_close(num, want_num, rtol=0, atol=0)
+    torch.testing.assert_close(res, want_res, rtol=0, atol=0)
+    off = gate == 0
+    assert torch.equal(res[off], e.float()[off])
+    assert ops.launch_counts()["fused_uplink_ef"] == 1
+
+
+def test_cuda_uplink_unaligned_views_take_the_scalar_path(cuda):
+    shape = (3, 2, 1000)
+    _, levels, scales, w = _uplink_inputs(shape, cuda, 7)
+    lv = torch.randint(-127, 128, (6001,), device=cuda,
+                       dtype=torch.int8)[1:].view(shape)   # 1-byte offset
+    v = torch.randn(6001, device=cuda)[1:].view(shape)     # 4-byte offset
+    gate = torch.ones(shape[:2], device=cuda)
+    torch.testing.assert_close(ops.fused_uplink(lv, scales, w),
+                               ref.fused_uplink(lv, scales, w),
+                               rtol=0, atol=0)
+    for got, want in zip(ops.fused_uplink_ef(lv, scales, w, gate, v, v),
+                         ref.fused_uplink_ef(lv, scales, w, gate, v, v)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cuda_uplink_kernels_reject_bad_inputs(cuda):
+    _, levels, scales, w = _uplink_inputs((2, 3, 8), cuda, 1)
+    with pytest.raises(TypeError):
+        tku.fused_uplink(levels.float(), scales, w)
+    with pytest.raises(ValueError):
+        tku.fused_uplink(levels, scales[:, :2].contiguous(), w)
+    v = torch.zeros(2, 3, 8, device=cuda)
+    with pytest.raises(TypeError):
+        tku.fused_uplink_ef(levels, scales, w, w, v.half(), v)
+    with pytest.raises(ValueError):
+        tku.fused_uplink_ef(levels, scales, w, w, v.transpose(1, 2)
+                            .contiguous().transpose(1, 2), v)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("bits,ef", [(8, True), (4, False)])
+def test_cuda_compressed_round_matches_cpu_round(cuda, bits, ef):
+    """One compressed fedldf round through the uplink kernels on the card
+    against the same round through the plain versions on the CPU: equal
+    selection, params within 2e-5 plus one quantization step."""
+    params = cnn.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.normal(size=(5, 8, 32, 32, 3)).astype(np.float32),
+             "labels": rng.integers(0, 10, size=(5, 8)).astype(np.int32)}
+    sizes = np.array([100.0, 150.0, 80.0, 120.0, 100.0], np.float32)
+    fl = FLConfig(num_clients=10, clients_per_round=5, top_n=2,
+                  batch_per_client=8,
+                  compression=CompressionConfig(bits=bits, error_feedback=ef))
+    umap = UnitMap.build(params)
+    round_fn = build_round_fn(lambda p, b: cnn.classify_loss(p, CFG, b),
+                              umap, fl)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = make_strategy(fl).init_state(p, 5)
+        outs[str(dev)] = round_fn(p, b, torch.from_numpy(sizes).to(dev),
+                                  state)
+    (new_c, m_c), (new_g, m_g) = outs["cpu"], outs["cuda"]
+    assert torch.equal(m_g["selection"].cpu(), m_c["selection"])
+    step = m_c["wire"]["payload"].scales.amax(dim=0)
+    for key, (off, _) in umap.spans.items():
+        for a, c in zip(tree_leaves(new_g[key]), tree_leaves(new_c[key])):
+            torch.testing.assert_close(a.cpu(), c, rtol=0,
+                                       atol=EQUIV_TOL + float(step[off]))
+    counts = ops.launch_counts()
+    name = "fused_uplink_ef" if ef else "fused_uplink"
+    assert counts[name] == len(tree_leaves(params))
+    assert counts["sqdiff_rowsum"] == len(tree_leaves(params))
 
 
 @pytest.mark.parametrize("mode", ["vmap", "scan"])
