@@ -25,13 +25,29 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
 7. setting B (int4 levels, no error feedback): 2 rounds, exact uplink
    bytes, 34 ``fused_uplink`` launches a round, one round against plain;
 8. kernel times at the main path's shapes beside the byte bound, the plain
-   version and a library call, and each path's round time.
+   version and a library call, and each path's round time;
+9. serving full-width, full-depth qwen3-1.7b in f32 (TF32 off): batch 4, a
+   2048-token prompt from a numpy seed, 32 greedy decode steps, through
+   the flash-attention kernel, then the same steps through its plain
+   version on the card and ``forward`` over the same tokens; logits must
+   agree within 1e-3 of max |logit| and the greedy tokens must be equal
+   except at a step whose top-2 gap is below that;
+10. the same serving in the config's own bf16, timed: prefill ms, decode ms
+   per token, 28 kernel launches per prefill and per decode step, and the
+   kernel's device time per prefill and per decode step beside its bound,
+   the plain version and ``scaled_dot_product_attention``; then the serve
+   launcher (``python -m repro_torch.launch.serve --arch qwen3-1.7b``) once.
+
+The flash-attention kernel is also held to its plain version in phase 3,
+over ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4 / 2e-2),
+a fully masked case and the full-width prefill and decode shapes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The data set is cut to 10,000 training
 images (200 per client instead of the paper's 1,000) to keep set-up short;
 weights are random, drawn from a fixed seed.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -58,9 +74,19 @@ UPLINK_EF_SHAPES = [(2, 5, 64), (4, 16, 2048), (3, 9, 515)]
 # packed payload of K clients, for full-width VGG-9 at K=20, n=4
 WANT_UPLINK = {8: 18_839_724, 4: 9_420_312}
 WANT_PAYLOAD = {8: 94_194_849, 4: 47_097_789}
-# H100 SXM data sheet: HBM rate and the f32 rate outside the tensor cores
+# tests/test_flash_kernel.py CASES: (bh, bkv, sq, skv, hd, causal, window)
+FLASH_CASES = [(4, 2, 64, 64, 32, True, 0), (2, 2, 100, 100, 32, True, 0),
+               (6, 2, 48, 48, 16, True, 7), (2, 1, 33, 65, 64, False, 0),
+               (8, 1, 40, 40, 128, True, 0)]
+FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}    # tests/test_flash_kernel.py:37
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32   # 32 decode steps
+SERVE_RTOL = 1e-3           # of max |logit|
+# H100 SXM data sheet: HBM rate, the f32 rate outside the tensor cores and
+# the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SLEEP_CYCLES = 10_000_000   # ~5 ms of GPU spin: the host enqueues meanwhile
 
 
@@ -94,9 +120,13 @@ def main():
                                        build_round_vmap, make_local_update,
                                        make_strategy, run_training,
                                        sample_clients)
-    from repro_torch.kernels import (_build, aggregate, divergence, ops,
-                                     uplink)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (_build, aggregate, divergence,
+                                     flash_attention, ops, uplink)
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer as tf
     from repro_torch.models.cnn import classify_loss, init_params
     from repro_torch.optim import sgd
 
@@ -199,6 +229,47 @@ def main():
             if shape == big_uplink and dtype == torch.float32:
                 main_err["fused_uplink_ef"] = max(e1, e2)
     del lv, sc, w, gate, v, e_old, num, res, want_num, want_res
+
+    def flash_check(label, q, k, v, dn, **kw):
+        return compare(f"flash_attention {label} {dn}",
+                       flash_attention.flash_attention(q, k, v, **kw).float(),
+                       kref.flash_attention(q, k, v, **kw).float(),
+                       {"rtol": FLASH_TOL[dn], "atol": FLASH_TOL[dn]})
+
+    for bh, bkv, sq, skv, hd, causal, window in FLASH_CASES:
+        for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q = randn((bh, sq, hd), dtype)
+            k, v = randn((bkv, skv, hd), dtype), randn((bkv, skv, hd), dtype)
+            flash_check(f"{(bh, bkv, sq, skv, hd)} causal={causal} "
+                        f"window={window}", q, k, v, dn, causal=causal,
+                        window=window)
+    q, k, v = randn((2, 64, 16)), randn((2, 16, 16)), randn((2, 16, 16))
+    out = flash_attention.flash_attention(q, k, v, causal=False, window=8)
+    torch.cuda.synchronize()
+    masked_ok = bool(torch.isfinite(out).all()) and bool(
+        (out[:, 23:] == 0).all())
+    say(f"[kernel] flash_attention fully masked rows (q 64 x k 16, "
+        f"window=8): exactly 0 and no NaN: {masked_ok}")
+    if not masked_ok:
+        failures.append("flash_attention fully masked rows")
+    flash_check("(2, 2, 64, 16, 16) window=8", q, k, v, "f32", causal=False,
+                window=8)
+    # full width, bf16: qwen3-1.7b's prefill and decode at batch 4
+    q, k, v = (randn((64, SERVE_PROMPT, 128), torch.bfloat16),
+               randn((32, SERVE_PROMPT, 128), torch.bfloat16),
+               randn((32, SERVE_PROMPT, 128), torch.bfloat16))
+    main_err["flash_attention"] = flash_check(
+        f"prefill {(64, 32, SERVE_PROMPT, SERVE_PROMPT, 128)} causal", q, k,
+        v, "bf16", causal=True)
+    skv = SERVE_PROMPT + SERVE_STEPS
+    q, k, v = (randn((64, 1, 128), torch.bfloat16),
+               randn((32, skv, 128), torch.bfloat16),
+               randn((32, skv, 128), torch.bfloat16))
+    for kv_len in (1, SERVE_PROMPT + 1, skv):
+        e = flash_check(f"decode {(64, 32, 1, skv, 128)} kv_len={kv_len}", q,
+                        k, v, "bf16", causal=False, kv_len=kv_len)
+        main_err["flash_attention"] = max(main_err["flash_attention"], e)
+    del q, k, v, out
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
@@ -603,6 +674,210 @@ def main():
         f"vmap {rv_ms:.3f} ms, scan {rs_ms:.3f} ms, setting A {ra_ms:.3f} "
         f"ms, setting B {rb_ms:.3f} ms ({smi})")
 
+    # ---- 9. serving full-width qwen3-1.7b in f32 ------------------------
+    del flush
+    cfg_bf = get_config(SERVE_ARCH)
+    cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
+                                compute_dtype="float32")
+    layers_, steps = cfg_bf.num_layers, SERVE_STEPS + 1     # + the prefill
+    gen_w = torch.Generator(device=dev)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg32, gen_w.manual_seed(SEED), dev)
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg32.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    torch.cuda.synchronize()
+    say(f"[serve] {cfg32.name} f32: {cfg32.param_count()} params "
+        f"(param_count()), {layers_} layers, d={cfg32.d_model}, "
+        f"{cfg32.num_heads} heads over {cfg32.num_kv_heads} KV heads, "
+        f"hd={cfg32.hd}; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_STEPS} decode steps; init {time.perf_counter() - t0:.2f} s")
+
+    def serve_once(p, cfg, label):
+        """The main path: prefill + SERVE_STEPS greedy decode steps, with
+        the launch counts zeroed just before and read just after."""
+        ops.reset_launch_counts()
+        run = serve.generate(p, cfg, prompts, steps, keep_logits=True)
+        n = ops.launch_counts()["flash_attention"]
+        say(f"[{label}] prefill {run.prefill_s * 1e3:.3f} ms, decode "
+            f"{run.decode_s_per_token * 1e3:.3f} ms/token; flash_attention "
+            f"launches {n} (want {layers_} x (1 + {SERVE_STEPS}))")
+        if n != layers_ * steps:
+            fail(f"{label}: {n} flash_attention launches, expected "
+                 f"{layers_} per prefill and per decode step")
+        if not all(bool(torch.isfinite(lg).all()) and
+                   lg.shape == (SERVE_BATCH, cfg.vocab_size)
+                   for lg in run.logits):
+            fail(f"{label}: non-finite or mis-shaped logits")
+        return run, n
+
+    run32, n32 = serve_once(params, cfg32, "serve f32")
+    # the same steps through the plain attention on the card, fed the
+    # kernel run's tokens
+    with torch.inference_mode():
+        lg, cache = dec.prefill(params, cfg32, prompts,
+                                max_len=SERVE_PROMPT + steps,
+                                flash_attention=kref.flash_attention)
+        plain = [lg]
+        for t in range(SERVE_STEPS):
+            lg, cache = dec.decode_step(params, cfg32,
+                                        run32.tokens[:, t:t + 1], cache,
+                                        flash_attention=kref.flash_attention)
+            plain.append(lg)
+        del cache
+        seq = torch.cat([prompts, run32.tokens[:, :SERVE_STEPS]], dim=1)
+        full = tf.forward(params, cfg32, seq)[0][:, SERVE_PROMPT - 1:]
+    got = torch.stack(run32.logits, dim=1)              # (B, steps, V)
+    plain = torch.stack(plain, dim=1)
+    scale = float(got.abs().max())
+    tol = SERVE_RTOL * scale
+    d_plain = float((got - plain).abs().max())
+    d_full = float((got - full).abs().max())
+    top2 = plain.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]                   # (B, steps)
+    same = plain.argmax(dim=-1) == run32.tokens
+    near = (gap < tol).any(dim=0)
+    bad = (~same & (gap >= tol)).any(dim=0)
+    say(f"[serve f32] max |logit| {scale:.4f}; kernel vs plain: max_abs_diff "
+        f"{d_plain:.3e}; prefill + decode vs forward: max_abs_diff "
+        f"{d_full:.3e} (limit {tol:.3e} = {SERVE_RTOL} x max |logit|); "
+        f"greedy tokens equal at {int(same.all(dim=0).sum())} of {steps} "
+        f"steps; steps with a top-2 gap below the limit: "
+        f"{near.nonzero().flatten().tolist()}")
+    if d_plain > tol or d_full > tol or bool(bad.any()):
+        fail("serving f32: the kernel path disagrees with the plain path or "
+             "with forward")
+    del params, plain, full, got, seq
+    torch.cuda.empty_cache()
+
+    # ---- 10. serving in the config's own bf16, timed -----------------------
+    params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
+    serve.generate(params, cfg_bf, prompts[:, :256], 4)            # warm-up
+    runs = [serve_once(params, cfg_bf, f"serve bf16 #{i}") for i in range(3)]
+    n_bf = sum(n for _, n in runs)
+    pre_ms = statistics.median(r.prefill_s * 1e3 for r, _ in runs)
+    tok_ms = statistics.median(r.decode_s_per_token * 1e3 for r, _ in runs)
+    recorded_fa = []
+
+    def recording_fa(q, k, v, **kw):
+        recorded_fa.append((q, k, v, kw))
+        return kref.flash_attention(q, k, v, **kw)
+
+    with torch.inference_mode():
+        lg, cache = dec.prefill(params, cfg_bf, prompts,
+                                max_len=SERVE_PROMPT + steps,
+                                flash_attention=recording_fa)
+        pre_calls = recorded_fa[:]
+        dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None], cache,
+                        flash_attention=recording_fa)
+        dec_calls = recorded_fa[len(pre_calls):]
+        # the main path's own bf16 calls (strided views of the projections
+        # and of the stacked cache), kernel against plain
+        for label, calls in (("prefill", pre_calls), ("decode", dec_calls)):
+            errs, bad = [], 0
+            for q, k, v, kw in calls:
+                got = flash_attention.flash_attention(q, k, v, **kw).float()
+                want = kref.flash_attention(q, k, v, **kw).float()
+                errs.append(float((got - want).abs().max()))
+                bad += not torch.allclose(got, want, rtol=FLASH_TOL["bf16"],
+                                          atol=FLASH_TOL["bf16"])
+            say(f"[kernel] flash_attention on the bf16 {label}'s "
+                f"{len(calls)} recorded calls (model views, kv_len "
+                f"{sorted({kw.get('kv_len') for _, _, _, kw in calls}, key=str)}"
+                f"): max_abs_err={max(errs):.3e}, {bad} outside rtol=atol="
+                f"{FLASH_TOL['bf16']}")
+            if bad:
+                fail(f"flash_attention disagrees with its plain version on "
+                     f"{bad} of the bf16 {label}'s calls")
+            main_err["flash_attention"] = max(main_err["flash_attention"],
+                                              max(errs))
+        del got, want
+    flush = torch.empty(64 * 2**20, device=dev)
+
+    def fa_bound(calls):
+        nbytes = flops = 0
+        for q, k, v, kw in calls:
+            b_, sq_, h_, hd_ = q.shape
+            kv_len = kw.get("kv_len") or k.shape[1]
+            pairs = int(kref._attention_mask(
+                sq_, k.shape[1], kw["causal"], kw["window"], kv_len,
+                dev).sum())
+            nbytes += 2 * nb(q) + 2 * b_ * kv_len * k.shape[2] * hd_ * \
+                k.element_size()
+            flops += 4 * b_ * h_ * hd_ * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def sdpa_args(calls):
+        out = []
+        for q, k, v, kw in calls:
+            n = kw.get("kv_len") or k.shape[1]
+            out.append((q.transpose(1, 2).contiguous(),
+                        k[:, :n].transpose(1, 2).contiguous(),
+                        v[:, :n].transpose(1, 2).contiguous(),
+                        kw["causal"]))
+        return out
+
+    fa_times = {}
+    for label, calls in (("prefill", pre_calls), ("decode", dec_calls)):
+        lib_args = sdpa_args(calls)                       # copies untimed
+        k_ms, k_host = device_ms(lambda: [
+            flash_attention.flash_attention(q, k, v, **kw)
+            for q, k, v, kw in calls], reps=5)
+        p_ms, _ = device_ms(lambda: [kref.flash_attention(q, k, v, **kw)
+                                     for q, k, v, kw in calls], reps=5)
+        l_ms, _ = device_ms(lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True)
+            for q, k, v, c in lib_args], reps=5)
+        b_ms, b_by = fa_bound(calls)
+        fa_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by, k_host)
+        del lib_args
+    del pre_calls, dec_calls, recorded_fa, cache, flush
+
+    # where a serving step's time goes: device time by kernel under
+    # torch.profiler, against the step's host wall-clock measured above
+    from torch.profiler import ProfilerActivity, profile
+    busy = {}
+    with torch.inference_mode():
+        for label in ("prefill", "decode"):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                if label == "prefill":
+                    lg, cache = dec.prefill(params, cfg_bf, prompts,
+                                            max_len=SERVE_PROMPT + steps)
+                else:
+                    dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None],
+                                    cache)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy[label] = sum(e.self_device_time_total for e in kern) / 1e3
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+            say(f"[profile] one bf16 {label}: device busy {busy[label]:.3f} "
+                f"ms; top kernels: " + "; ".join(
+                    f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
+                    f"x{e.count}" for e in top))
+        del cache
+    say(f"[profile] device idle share: prefill "
+        f"{1 - busy['prefill'] / pre_ms:.3f}, decode "
+        f"{1 - busy['decode'] / tok_ms:.3f} (busy time under the profiler "
+        f"against the median host wall-clock of the timed runs)")
+    for label in ("prefill", "decode"):
+        k_ms, p_ms, l_ms, b_ms, b_by, k_host = fa_times[label]
+        say(f"[times] flash_attention, one bf16 {label} "
+            f"({layers_} launches): kernel_ms={k_ms:.4f} bound_ms="
+            f"{b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"(scaled_dot_product_attention, enable_gqa; layout copies "
+            f"untimed) host_enqueue_ms={k_host:.4f}")
+    say(f"[times] serving bf16, median of 3: prefill {pre_ms:.3f} ms, "
+        f"decode {tok_ms:.3f} ms/token ({smi})")
+    del params
+    torch.cuda.empty_cache()
+    say("[cli] python -m repro_torch.launch.serve --arch qwen3-1.7b "
+        "--temperature 0:")
+    serve.main(["--arch", SERVE_ARCH, "--temperature", "0"])
+
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/divergence.cu",
@@ -634,6 +909,15 @@ def main():
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:32",
+         "launches": n32 + n_bf,
+         "max_abs_err": main_err["flash_attention"],
+         "ms": fa_times["prefill"][0], "plain_ms": fa_times["prefill"][1],
+         "bound_ms": fa_times["prefill"][3],
+         "bound_by": fa_times["prefill"][4],
+         "library_ms": fa_times["prefill"][2]},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -22,7 +22,7 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("divergence", "aggregate", "uplink")
+SOURCES = ("divergence", "aggregate", "uplink", "flash_attention")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")

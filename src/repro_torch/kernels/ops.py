@@ -12,12 +12,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import aggregate as _aggregate
 from repro_torch.kernels import divergence as _divergence
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import uplink as _uplink
 
 # Every kernel the port launches, as its launch counter names it.
 KERNELS = ("sqdiff_rowsum", "masked_accumulate", "fused_uplink",
-           "fused_uplink_ef")
+           "fused_uplink_ef", "flash_attention")
 
 
 def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,6 +54,19 @@ def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
     if levels.device.type == "cuda":
         return _uplink.fused_uplink_ef(levels, scales, w, gate, v, e_old)
     return _ref.fused_uplink_ef(levels, scales, w, gate, v, e_old)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """GQA softmax attention with causal, window and ``k_pos < kv_len``
+    masks; q (BH, Sq, hd) with k, v (BKV, Skv, hd), or q (B, Sq, H, hd)
+    with k, v (B, Skv, KV, hd). A row with no key gives 0."""
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                      kv_len=kv_len)
+    return _ref.flash_attention(q, k, v, causal=causal, window=window,
+                                kv_len=kv_len)
 
 
 def launch_counts() -> dict[str, int]:

@@ -7,10 +7,19 @@ the two extensions the kernels have: ``b`` may be broadcast over client
 blocks, and the accumulate may write in place. The uplink sums run over
 the client axis in a fixed ascending order (the reference's einsum leaves
 the order open), so the CUDA kernels can match them bit for bit.
+
+:func:`flash_attention` follows the Pallas kernel
+(``src/repro/kernels/flash_attention.py``), not its oracle: a row that no
+key may attend to gives 0 there, where :func:`ref_attention` (the port of
+the reference's oracle) gives the mean of V.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
 
 
 def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,3 +82,77 @@ def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
     g = gate.float()[..., None]
     res = g * (v.float() - recon) + (1.0 - g) * e_old.float()
     return num, res
+
+
+def _attention_mask(sq: int, skv: int, causal: bool, window: int,
+                    kv_len: int, device) -> torch.Tensor:
+    """(Sq, Skv) bool: query row i may attend to key j (positions are the
+    indices, as in the Pallas kernel)."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    ok = k_pos < kv_len
+    if causal:
+        ok = ok & (k_pos <= q_pos)
+    if window > 0:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    kv_len: int | None = None) -> torch.Tensor:
+    """GQA softmax(Q·Kᵀ/√hd)·V with the Pallas kernel's masks and result.
+
+    Two layouts, as the CUDA kernel takes them:
+
+    - the kernel's own: q (BH, Sq, hd), k and v (BKV, Skv, hd), BH =
+      BKV·G, and row ``bh`` reads K/V row ``bh // G``;
+    - the model's (``attend``): q (B, Sq, H, hd), k and v (B, Skv, KV,
+      hd), H = KV·G, and head ``h`` reads K/V head ``h // G``.
+
+    Row i may attend to key j when ``j < kv_len`` (default Skv), ``j <= i``
+    if ``causal`` and ``j > i - window`` if ``window > 0``. Products and
+    sums are f32 and the scale is applied after the dot. A row with no key
+    gives 0. Returns q's shape in q.dtype.
+    """
+    if q.ndim == 4:
+        b, sq, h, hd = q.shape
+        skv, kvh = k.shape[1], k.shape[2]
+        o = flash_attention(
+            q.transpose(1, 2).reshape(b * h, sq, hd),
+            k.transpose(1, 2).reshape(b * kvh, skv, hd),
+            v.transpose(1, 2).reshape(b * kvh, skv, hd),
+            causal=causal, window=window, kv_len=kv_len)
+        return o.reshape(b, h, sq, hd).transpose(1, 2).contiguous()
+    bh, sq, hd = q.shape
+    bkv, skv, _ = k.shape
+    g = bh // bkv
+    kv_len = skv if kv_len is None else kv_len
+    s = torch.bmm(q.float().reshape(bkv, g * sq, hd),
+                  k.float().transpose(1, 2)) * (1.0 / math.sqrt(hd))
+    s = s.reshape(bkv, g, sq, skv)
+    ok = _attention_mask(sq, skv, causal, window, kv_len, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.bmm(p.reshape(bkv, g * sq, skv), v.float())
+    o = o.reshape(bkv, g, sq, hd) / l.clamp_min(1e-30)
+    return o.reshape(bh, sq, hd).to(q.dtype)
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The reference's oracle (``flash_attention.py:ref_attention``): plain
+    softmax over the masked scores, in the kernel's (BH, Sq, hd) layout.
+    A fully-masked row gets uniform weights, so it gives the mean of V."""
+    bh, sq, hd = q.shape
+    bkv, skv, _ = k.shape
+    group = bh // bkv
+    kr = k.repeat_interleave(group, dim=0).float()
+    vr = v.repeat_interleave(group, dim=0).float()
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kr) / (hd ** 0.5)
+    ok = _attention_mask(sq, skv, causal, window, skv, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, vr).to(q.dtype)

@@ -1,2 +1,3 @@
-"""Placement of the federated state on devices (port of ``repro.launch``;
-only the single-device residual store so far)."""
+"""Launchers and placement, port of ``repro.launch``: the serve launcher
+(``serve.py``) and the single-device residual store (``sharding.py``) so
+far."""

@@ -1,4 +1,6 @@
-"""Model zoo of the port: VGG-9 (the paper's model) so far."""
-from repro_torch.models import cnn
+"""Model zoo of the port: VGG-9 (the paper's model) and the transformer LM
+for the dense and vlm families (attention, forward, serving)."""
+from repro_torch.models import (attention, cnn, config, decode, layers,
+                                transformer)
 
-__all__ = ["cnn"]
+__all__ = ["attention", "cnn", "config", "decode", "layers", "transformer"]

@@ -1,11 +1,14 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions,
-and a round on the card against the same round on the CPU.
+a round on the card against the same round on the CPU, and the serving path
+through the flash-attention kernel.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -18,11 +21,17 @@ from repro_torch.data import (FederatedData, iid_partition,  # noqa: E402
 from repro_torch.federated import (CompressionConfig, FLConfig,  # noqa: E402
                                    build_round_fn, make_strategy,
                                    run_training)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import aggregate as tka  # noqa: E402
 from repro_torch.kernels import divergence as tkd  # noqa: E402
+from repro_torch.kernels import flash_attention as tkf  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import uplink as tku  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import decode as tdec  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.models.config import ModelConfig  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -253,3 +262,161 @@ def test_cuda_run_training_launches_kernels(cuda):
     # scan mode: one launch per leaf, client and round
     assert ops.launch_counts()["masked_accumulate"] == \
         2 * 5 * len(tree_leaves(params))
+
+
+# tests/test_flash_kernel.py CASES: (bh, bkv, sq, skv, hd, causal, window)
+FLASH_CASES = [(4, 2, 64, 64, 32, True, 0), (2, 2, 100, 100, 32, True, 0),
+               (6, 2, 48, 48, 16, True, 7), (2, 1, 33, 65, 64, False, 0),
+               (8, 1, 40, 40, 128, True, 0)]
+FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}      # tests/test_flash_kernel.py:37
+
+
+def _flash_inputs(device, q_shape, kv_shape, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device, dtype=DTYPES[dtype])
+            for s in (q_shape, kv_shape, kv_shape)]
+
+
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=FLASH_TOL[dtype], atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(i) for i in range(len(FLASH_CASES))])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
+    bh, bkv, sq, skv, hd, causal, window = case
+    q, k, v = _flash_inputs(cuda, (bh, sq, hd), (bkv, skv, hd), dtype,
+                            sum(case[:5]))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, ref.flash_attention(q, k, v, causal=causal, window=window),
+           dtype)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_cuda_flash_attention_fully_masked_rows_are_zero(cuda):
+    q, k, v = _flash_inputs(cuda, (2, 64, 16), (2, 16, 16), "f32", 0)
+    got = ops.flash_attention(q, k, v, causal=False, window=8)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, 23:] == 0).all())     # rows that see no key
+    _close(got, ref.flash_attention(q, k, v, causal=False, window=8), "f32")
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 31, 64, 65, 100])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 9)])
+def test_cuda_flash_attention_kv_len(cuda, kv_len, causal, window):
+    q, k, v = _flash_inputs(cuda, (6, 100, 64), (3, 100, 64), "f32", kv_len)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_len=kv_len)
+    _close(got, ref.flash_attention(q, k, v, causal=causal, window=window,
+                                    kv_len=kv_len), "f32")
+
+
+@pytest.mark.parametrize("shape", ["prefill", "decode"])
+def test_cuda_flash_attention_full_width(cuda, shape):
+    """qwen3-1.7b at batch 4: 16 heads over 8 KV heads, hd 128, bf16."""
+    if shape == "prefill":
+        q, k, v = _flash_inputs(cuda, (64, 2048, 128), (32, 2048, 128),
+                                "bf16", 1)
+        _close(ops.flash_attention(q, k, v, causal=True),
+               ref.flash_attention(q, k, v, causal=True), "bf16")
+        return
+    q, k, v = _flash_inputs(cuda, (64, 1, 128), (32, 2080, 128), "bf16", 2)
+    for kv_len in (1, 2049, 2080):
+        _close(ops.flash_attention(q, k, v, causal=False, kv_len=kv_len),
+               ref.flash_attention(q, k, v, causal=False, kv_len=kv_len),
+               "bf16")
+
+
+def test_cuda_flash_attention_takes_model_views(cuda):
+    """(B, S, H, hd) views of a (B, S, H·hd) projection and a slice of a
+    stacked cache go in without copies and match the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qp = torch.randn(2, 40, 4 * 32, generator=g, device=cuda)
+    cache = torch.randn(3, 2, 48, 2, 32, generator=g, device=cuda)
+    q, k, v = qp.view(2, 40, 4, 32), cache[1][:, :40], cache[2][:, :40]
+    assert not k.is_contiguous()
+    _close(ops.flash_attention(q, k, v, causal=True, window=5),
+           ref.flash_attention(q, k, v, causal=True, window=5), "f32")
+    one = qp[:, :1].reshape(2, 1, 4, 32)
+    _close(ops.flash_attention(one, cache[1], cache[2], causal=False,
+                               kv_len=17),
+           ref.flash_attention(one, cache[1], cache[2], causal=False,
+                               kv_len=17), "f32")
+
+
+def test_cuda_flash_attention_rejects_bad_inputs(cuda):
+    q, k, v = _flash_inputs(cuda, (4, 8, 32), (2, 8, 32), "f32", 0)
+    with pytest.raises(ValueError):                     # hd 48
+        tkf.flash_attention(*_flash_inputs(cuda, (4, 8, 48), (2, 8, 48),
+                                           "f32", 0))
+    with pytest.raises(TypeError):                      # dtype mix
+        tkf.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(RuntimeError, match="backward"):
+        tkf.flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(ValueError):                     # a CPU tensor
+        tkf.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError):                     # kv_len > Skv
+        tkf.flash_attention(q, k, v, kv_len=9)
+    with pytest.raises(ValueError):                     # 8-byte offset
+        base = torch.randn(2 * 8 * 32 + 2, device=cuda)[2:]
+        tkf.flash_attention(q, base.view(2, 8, 32), v)
+    q4 = q.view(1, 4, 8, 32).transpose(1, 2)
+    k4 = k.view(1, 2, 8, 32).transpose(1, 2)
+    with pytest.raises(NotImplementedError):
+        tattn.attend(q4, k4, k4, kv_valid=torch.ones(1, 8, dtype=torch.bool,
+                                                     device=cuda))
+    with pytest.raises(NotImplementedError):
+        tattn.attend(q4, k4, k4, q_pos=torch.arange(8, device=cuda))
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_cuda_decode_matches_forward_through_the_kernel(cuda):
+    """A small dense model with a sliding window: prefill into a
+    prompt-sized ring buffer, then decode past it (the buffer wraps);
+    every step's logits equal forward's at that position, all through the
+    kernel, and equal the CPU path's."""
+    cfg = ModelConfig(name="t-dense", family="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                      d_ff=128, vocab_size=97, sliding_window=6)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 97, size=(2, 20)))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, _ = ttf.forward(p, cfg, t)
+            lg, cache = tdec.prefill(p, cfg, t[:, :10])
+            steps = [lg]
+            for i in range(10, 20):
+                lg, cache = tdec.decode_step(p, cfg, t[:, i:i + 1], cache)
+                torch.testing.assert_close(lg, full[:, i], rtol=1e-4,
+                                           atol=1e-4)
+                steps.append(lg)
+        outs[str(dev)] = torch.stack(steps).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    # forward once, prefill once, 10 decode steps: 2 layers each
+    assert ops.launch_counts()["flash_attention"] == 2 * 12
+
+
+def test_cuda_serving_launches_once_per_layer_at_full_depth(cuda):
+    """qwen3-1.7b's 28 layers (at reduced width): 28 kernel launches per
+    prefill and per decode step."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                              num_layers=28)
+    params = ttf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    with torch.inference_mode():
+        lg, cache = tdec.prefill(params, cfg, toks, max_len=28)
+        assert ops.launch_counts()["flash_attention"] == 28
+        for i in range(3):
+            lg, cache = tdec.decode_step(params, cfg, lg.argmax(-1)[:, None],
+                                         cache)
+            assert ops.launch_counts()["flash_attention"] == 28 * (i + 2)
+    assert bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.vocab_size)
