@@ -33,14 +33,23 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    agree within 1e-3 of max |logit| and the greedy tokens must be equal
    except at a step whose top-2 gap is below that;
 10. the same serving in the config's own bf16, timed: prefill ms, decode ms
-   per token, 28 kernel launches per prefill and per decode step, and the
-   kernel's device time per prefill and per decode step beside its bound,
-   the plain version and ``scaled_dot_product_attention``; then the serve
-   launcher (``python -m repro_torch.launch.serve --arch qwen3-1.7b``) once.
+   per token, 28 kernel launches per prefill (all on the tensor-core route)
+   and per decode step (all on the split-KV route, none on the CUDA cores),
+   and each route's device time per prefill and per decode step beside its
+   bound, the plain version and ``scaled_dot_product_attention``; then the
+   serve launcher (``python -m repro_torch.launch.serve --arch qwen3-1.7b``)
+   once.
 
-The flash-attention kernel is also held to its plain version in phase 3,
-over ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4 / 2e-2),
-a fully masked case and the full-width prefill and decode shapes.
+Flash attention has three routes (``kernels/flash_attention.py:route``):
+the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
+(``flash_attention_decode.cu``) and the CUDA cores (``flash_attention.cu``,
+f32 prefill and bf16 at hd 16 or 32). Phase 3 holds every route to the
+plain version: ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4
+/ 2e-2), a decode sweep (Sq 1, 5, 16; G 1, 2, 7, 8; kv_len 0, 1, a split
+boundary ± 1 and Skv; causal and windowed), ragged and padded tensor-core
+cases, a fully masked case a route, and the full-width prefill and decode
+shapes in bf16 and f32. Phase 9 times the CUDA-core route on the f32
+prefill's own calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The data set is cut to 10,000 training
@@ -79,6 +88,12 @@ FLASH_CASES = [(4, 2, 64, 64, 32, True, 0), (2, 2, 100, 100, 32, True, 0),
                (6, 2, 48, 48, 16, True, 7), (2, 1, 33, 65, 64, False, 0),
                (8, 1, 40, 40, 128, True, 0)]
 FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}    # tests/test_flash_kernel.py:37
+# tests/test_torch_gpu.py TC_CASES: (hd, sq, skv, kv_len, causal, window)
+TC_CASES = [(64, 33, 65, 65, False, 0), (128, 40, 40, 40, True, 0),
+            (64, 100, 100, 100, True, 0), (128, 40, 200, 150, True, 0),
+            (64, 300, 300, 300, True, 17), (128, 300, 300, 0, True, 0),
+            (128, 129, 300, 257, False, 100), (64, 128, 128, 128, True, 0),
+            (128, 17, 17, 17, True, 5), (128, 256, 256, 200, False, 0)]
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32   # 32 decode steps
 SERVE_RTOL = 1e-3           # of max |logit|
@@ -128,6 +143,7 @@ def main():
     from repro_torch.models import decode as dec
     from repro_torch.models import transformer as tf
     from repro_torch.models.cnn import classify_loss, init_params
+    from repro_torch.models.config import dtype_of
     from repro_torch.optim import sgd
 
     dev = torch.device("cuda")
@@ -146,8 +162,13 @@ def main():
         f"cuda={torch.version.cuda}")
 
     # ---- 2. build -----------------------------------------------------
+    t0 = time.perf_counter()
     build_s = _build.build()
-    say(f"[build] nvcc for {', '.join(_build.SOURCES)}: {build_s:.2f} s")
+    say(f"[build] nvcc, one process a source, all started together: "
+        f"{time.perf_counter() - t0:.2f} s in all; seconds a source from the "
+        f"start: " + ", ".join(f"{n} {build_s[n]:.2f}" if n in build_s else
+                               f"{n} (built before)"
+                               for n in _build.SOURCES))
 
     # ---- 3. kernels vs plain on the card -------------------------------
     failures = []
@@ -156,14 +177,15 @@ def main():
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
-    def compare(label, got, want, tol=TOL):
+    def compare(label, got, want, tol=TOL, quiet=False):
         torch.cuda.synchronize()
         err = (got - want).abs()
         abs_err = float(err.max())
         rel_err = float((err / want.abs().clamp_min(1e-30)).max())
         ok = bool(torch.allclose(got, want, **tol))
-        say(f"[kernel] {label}: max_abs_err={abs_err:.3e} "
-            f"max_rel_err={rel_err:.3e} {'ok' if ok else 'FAIL'}")
+        if not (quiet and ok):
+            say(f"[kernel] {label}: max_abs_err={abs_err:.3e} "
+                f"max_rel_err={rel_err:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(label)
         return abs_err
@@ -230,45 +252,102 @@ def main():
                 main_err["fused_uplink_ef"] = max(e1, e2)
     del lv, sc, w, gate, v, e_old, num, res, want_num, want_res
 
-    def flash_check(label, q, k, v, dn, **kw):
-        return compare(f"flash_attention {label} {dn}",
-                       flash_attention.flash_attention(q, k, v, **kw).float(),
-                       kref.flash_attention(q, k, v, **kw).float(),
-                       {"rtol": FLASH_TOL[dn], "atol": FLASH_TOL[dn]})
+    fa_err = dict.fromkeys(flash_attention.ROUTES, 0.0)
+    fa_seen = dict.fromkeys(flash_attention.ROUTES, 0)
 
+    def flash_check(label, q, k, v, dn, quiet=False, **kw):
+        """The kernel of the call's route against the plain version; the
+        route is checked against the launch counts."""
+        route = flash_attention.route(q.dtype, q.shape[1], q.shape[-1])
+        before = ops.launch_counts()[f"flash_attention_{route}"]
+        got = flash_attention.flash_attention(q, k, v, **kw)
+        if ops.launch_counts()[f"flash_attention_{route}"] != before + 1:
+            failures.append(f"flash_attention {label}: not on route {route}")
+        if not bool(torch.isfinite(got).all()):
+            failures.append(f"flash_attention {label}: non-finite output")
+        e = compare(f"flash_attention [{route}] {label} {dn}", got.float(),
+                    kref.flash_attention(q, k, v, **kw).float(),
+                    {"rtol": FLASH_TOL[dn], "atol": FLASH_TOL[dn]}, quiet)
+        fa_err[route] = max(fa_err[route], e)
+        fa_seen[route] += 1
+        return e, got
+
+    dtypes = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
     for bh, bkv, sq, skv, hd, causal, window in FLASH_CASES:
-        for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for dtype, dn in dtypes:
             q = randn((bh, sq, hd), dtype)
             k, v = randn((bkv, skv, hd), dtype), randn((bkv, skv, hd), dtype)
             flash_check(f"{(bh, bkv, sq, skv, hd)} causal={causal} "
                         f"window={window}", q, k, v, dn, causal=causal,
                         window=window)
-    q, k, v = randn((2, 64, 16)), randn((2, 16, 16)), randn((2, 16, 16))
-    out = flash_attention.flash_attention(q, k, v, causal=False, window=8)
-    torch.cuda.synchronize()
-    masked_ok = bool(torch.isfinite(out).all()) and bool(
-        (out[:, 23:] == 0).all())
-    say(f"[kernel] flash_attention fully masked rows (q 64 x k 16, "
-        f"window=8): exactly 0 and no NaN: {masked_ok}")
-    if not masked_ok:
-        failures.append("flash_attention fully masked rows")
-    flash_check("(2, 2, 64, 16, 16) window=8", q, k, v, "f32", causal=False,
-                window=8)
-    # full width, bf16: qwen3-1.7b's prefill and decode at batch 4
-    q, k, v = (randn((64, SERVE_PROMPT, 128), torch.bfloat16),
-               randn((32, SERVE_PROMPT, 128), torch.bfloat16),
-               randn((32, SERVE_PROMPT, 128), torch.bfloat16))
-    main_err["flash_attention"] = flash_check(
-        f"prefill {(64, 32, SERVE_PROMPT, SERVE_PROMPT, 128)} causal", q, k,
-        v, "bf16", causal=True)
-    skv = SERVE_PROMPT + SERVE_STEPS
-    q, k, v = (randn((64, 1, 128), torch.bfloat16),
-               randn((32, skv, 128), torch.bfloat16),
-               randn((32, skv, 128), torch.bfloat16))
-    for kv_len in (1, SERVE_PROMPT + 1, skv):
-        e = flash_check(f"decode {(64, 32, 1, skv, 128)} kv_len={kv_len}", q,
-                        k, v, "bf16", causal=False, kv_len=kv_len)
-        main_err["flash_attention"] = max(main_err["flash_attention"], e)
+    # the decode route over grouped heads, a line per (dtype, Sq, G)
+    for dtype, dn in dtypes:
+        for sq in (1, 5, 16):
+            for group in (1, 2, 7, 8):
+                q = randn((2, sq, 2 * group, 128), dtype)
+                k, v = randn((2, 600, 2, 128), dtype), randn((2, 600, 2, 128),
+                                                            dtype)
+                rows = group * sq
+                _, chunk = flash_attention.decode_plan(
+                    4 * -(-rows // flash_attention.decode_row_block(rows)),
+                    600, flash_attention.decode_tile(128, q.element_size()))
+                errs = [flash_check(f"Sq={sq} G={group} kv_len={n}", q, k, v,
+                                    dn, quiet=True, causal=c, window=w,
+                                    kv_len=n)[0]
+                        for n in (0, 1, chunk - 1, chunk, chunk + 1, 600)
+                        for c, w in ((False, 0), (True, 0), (False, 9))]
+                say(f"[kernel] flash_attention [decode] (2, {sq}, "
+                    f"{2 * group}, 128) over (2, 600, 2, 128) {dn}, kv_len 0, "
+                    f"1, {chunk - 1}, {chunk}, {chunk + 1}, 600, causal / "
+                    f"window 9: {len(errs)} calls, max_abs_err="
+                    f"{max(errs):.3e}")
+    # the tensor-core route: ragged Sq, kv_len < Skv, windows, kv_len = 0
+    for hd, sq, skv, kv_len, causal, window in TC_CASES:
+        q = randn((2, sq, 4, hd), torch.bfloat16)
+        k, v = (randn((2, skv, 2, hd), torch.bfloat16),
+                randn((2, skv, 2, hd), torch.bfloat16))
+        _, out = flash_check(f"(2, {sq}, 4, {hd}) over (2, {skv}, 2, {hd}) "
+                             f"kv_len={kv_len} causal={causal} window="
+                             f"{window}", q, k, v, "bf16", causal=causal,
+                             window=window, kv_len=kv_len)
+        if kv_len == 0 and not bool((out == 0).all()):
+            failures.append("flash_attention [tc] kv_len=0: not all zeros")
+    # fully masked rows, a case a route
+    for label, dtype, dn, (qs, ks), kw, rows in (
+            ("(2, 64, 16) over (2, 16, 16)", torch.float32, "f32",
+             ((2, 64, 16), (2, 16, 16)), {"causal": False, "window": 8}, 23),
+            ("(2, 64, 64) over (2, 16, 64)", torch.bfloat16, "bf16",
+             ((2, 64, 64), (2, 16, 64)), {"causal": False, "window": 8}, 23),
+            ("(4, 16, 64) over (2, 20, 64) kv_len=4", torch.float32, "f32",
+             ((4, 16, 64), (2, 20, 64)),
+             {"causal": False, "window": 3, "kv_len": 4}, 6)):
+        q, k, v = randn(qs, dtype), randn(ks, dtype), randn(ks, dtype)
+        route = flash_attention.route(dtype, qs[1], qs[2])
+        _, out = flash_check(f"{label} window={kw['window']}", q, k, v, dn,
+                             **kw)
+        masked_ok = bool((out[:, rows:] == 0).all())
+        say(f"[kernel] flash_attention [{route}] fully masked rows {rows}.. "
+            f"of {label}: exactly 0 and no NaN: {masked_ok}")
+        if not masked_ok:
+            failures.append(f"flash_attention [{route}] fully masked rows")
+    # full width: qwen3-1.7b's prefill and decode at batch 4, both dtypes
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = (randn((64, SERVE_PROMPT, 128), dtype),
+                   randn((32, SERVE_PROMPT, 128), dtype),
+                   randn((32, SERVE_PROMPT, 128), dtype))
+        flash_check(f"prefill {(64, 32, SERVE_PROMPT, SERVE_PROMPT, 128)} "
+                    f"causal", q, k, v, dn, causal=True)
+        skv = SERVE_PROMPT + SERVE_STEPS
+        q, k, v = (randn((64, 1, 128), dtype), randn((32, skv, 128), dtype),
+                   randn((32, skv, 128), dtype))
+        for kv_len in (1, SERVE_PROMPT + 1, skv):
+            flash_check(f"decode {(64, 32, 1, skv, 128)} kv_len={kv_len}", q,
+                        k, v, dn, causal=False, kv_len=kv_len)
+    say(f"[kernel] flash_attention calls a route in this phase: {fa_seen}; "
+        f"max_abs_err a route: {fa_err}")
+    if not all(fa_seen.values()):
+        failures.append(f"flash_attention routes not all exercised: "
+                        f"{fa_seen}")
     del q, k, v, out
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
@@ -676,6 +755,66 @@ def main():
 
     # ---- 9. serving full-width qwen3-1.7b in f32 ------------------------
     del flush
+
+    def main_path_check(calls, label, dn):
+        """The main path's own calls (strided views of the projections and
+        of the stacked cache), kernel of their route against plain."""
+        errs, bad = [], 0
+        route = flash_attention.route(calls[0][0].dtype, calls[0][0].shape[1],
+                                      calls[0][0].shape[-1])
+        for q, k, v, kw in calls:
+            got = flash_attention.flash_attention(q, k, v, **kw).float()
+            want = kref.flash_attention(q, k, v, **kw).float()
+            errs.append(float((got - want).abs().max()))
+            bad += not torch.allclose(got, want, rtol=FLASH_TOL[dn],
+                                      atol=FLASH_TOL[dn])
+        say(f"[kernel] flash_attention [{route}] on the {label}'s "
+            f"{len(calls)} recorded calls (model views, kv_len "
+            f"{sorted({kw.get('kv_len') for _, _, _, kw in calls}, key=str)}"
+            f"): max_abs_err={max(errs):.3e}, {bad} outside rtol=atol="
+            f"{FLASH_TOL[dn]}")
+        if bad:
+            fail(f"flash_attention disagrees with its plain version on {bad} "
+                 f"of the {label}'s calls")
+        fa_err[route] = max(fa_err[route], max(errs))
+
+    def fa_bound(calls, flops_per_s):
+        nbytes = flops = 0
+        for q, k, v, kw in calls:
+            b_, sq_, h_, hd_ = q.shape
+            kv_len = kw.get("kv_len") or k.shape[1]
+            pairs = int(kref._attention_mask(
+                sq_, k.shape[1], kw["causal"], kw["window"], kv_len,
+                dev).sum())
+            nbytes += 2 * nb(q) + 2 * b_ * kv_len * k.shape[2] * hd_ * \
+                k.element_size()
+            flops += 4 * b_ * h_ * hd_ * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def route_times(calls, flops_per_s):
+        """Device ms of one use's calls through the kernel, the plain
+        version and scaled_dot_product_attention (layout copies untimed),
+        the bound, and the kernel's host enqueue ms."""
+        lib_args = []
+        for q, k, v, kw in calls:
+            n = kw.get("kv_len") or k.shape[1]
+            lib_args.append((q.transpose(1, 2).contiguous(),
+                             k[:, :n].transpose(1, 2).contiguous(),
+                             v[:, :n].transpose(1, 2).contiguous(),
+                             kw["causal"]))
+        k_ms, k_host = device_ms(lambda: [
+            flash_attention.flash_attention(q, k, v, **kw)
+            for q, k, v, kw in calls], reps=5)
+        p_ms, _ = device_ms(lambda: [kref.flash_attention(q, k, v, **kw)
+                                     for q, k, v, kw in calls], reps=5)
+        l_ms, _ = device_ms(lambda: [
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True)
+            for q, k, v, c in lib_args], reps=5)
+        b_ms, b_by = fa_bound(calls, flops_per_s)
+        return k_ms, p_ms, l_ms, b_ms, b_by, k_host
     cfg_bf = get_config(SERVE_ARCH)
     cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
                                 compute_dtype="float32")
@@ -694,29 +833,46 @@ def main():
 
     def serve_once(p, cfg, label):
         """The main path: prefill + SERVE_STEPS greedy decode steps, with
-        the launch counts zeroed just before and read just after."""
+        the launch counts zeroed just before and read just after. Every
+        prefill launch must take the prefill route of the config's dtype
+        and every decode launch the split-KV route."""
         ops.reset_launch_counts()
         run = serve.generate(p, cfg, prompts, steps, keep_logits=True)
-        n = ops.launch_counts()["flash_attention"]
+        counts = ops.launch_counts()
+        pre = flash_attention.route(dtype_of(cfg.compute_dtype),
+                                    SERVE_PROMPT, cfg.hd)
+        want = dict.fromkeys(flash_attention.ROUTES, 0)
+        want[pre] += layers_
+        want["decode"] += layers_ * SERVE_STEPS
+        got = {r: counts[f"flash_attention_{r}"] for r in want}
         say(f"[{label}] prefill {run.prefill_s * 1e3:.3f} ms, decode "
             f"{run.decode_s_per_token * 1e3:.3f} ms/token; flash_attention "
-            f"launches {n} (want {layers_} x (1 + {SERVE_STEPS}))")
-        if n != layers_ * steps:
-            fail(f"{label}: {n} flash_attention launches, expected "
-                 f"{layers_} per prefill and per decode step")
+            f"launches {counts['flash_attention']} (want {layers_} x (1 + "
+            f"{SERVE_STEPS})), by route {got} (want {want})")
+        if counts["flash_attention"] != layers_ * steps or got != want:
+            fail(f"{label}: flash_attention launches {got}, expected {want}: "
+                 f"{layers_} a prefill on the {pre} route and {layers_} a "
+                 f"decode step on the decode route")
         if not all(bool(torch.isfinite(lg).all()) and
                    lg.shape == (SERVE_BATCH, cfg.vocab_size)
                    for lg in run.logits):
             fail(f"{label}: non-finite or mis-shaped logits")
-        return run, n
+        return run, got
 
     run32, n32 = serve_once(params, cfg32, "serve f32")
+    recorded_fa = []
+
+    def recording_fa(q, k, v, **kw):
+        recorded_fa.append((q, k, v, kw))
+        return kref.flash_attention(q, k, v, **kw)
+
     # the same steps through the plain attention on the card, fed the
-    # kernel run's tokens
+    # kernel run's tokens (the prefill's calls are kept for the CUDA-core
+    # route's times)
     with torch.inference_mode():
         lg, cache = dec.prefill(params, cfg32, prompts,
                                 max_len=SERVE_PROMPT + steps,
-                                flash_attention=kref.flash_attention)
+                                flash_attention=recording_fa)
         plain = [lg]
         for t in range(SERVE_STEPS):
             lg, cache = dec.decode_step(params, cfg32,
@@ -747,21 +903,23 @@ def main():
         fail("serving f32: the kernel path disagrees with the plain path or "
              "with forward")
     del params, plain, full, got, seq
+    pre32_calls = recorded_fa[:]
+    main_path_check(pre32_calls, "f32 prefill", "f32")
+    flush = torch.empty(64 * 2**20, device=dev)
+    fa_times = {"cuda_core": route_times(pre32_calls, F32_FLOPS)}
+    del pre32_calls, recorded_fa, flush
     torch.cuda.empty_cache()
 
     # ---- 10. serving in the config's own bf16, timed -----------------------
     params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
     serve.generate(params, cfg_bf, prompts[:, :256], 4)            # warm-up
     runs = [serve_once(params, cfg_bf, f"serve bf16 #{i}") for i in range(3)]
-    n_bf = sum(n for _, n in runs)
+    # main-path launches a route: the f32 run and the three bf16 runs
+    launches = {r: n32[r] + sum(n[r] for _, n in runs)
+                for r in flash_attention.ROUTES}
     pre_ms = statistics.median(r.prefill_s * 1e3 for r, _ in runs)
     tok_ms = statistics.median(r.decode_s_per_token * 1e3 for r, _ in runs)
     recorded_fa = []
-
-    def recording_fa(q, k, v, **kw):
-        recorded_fa.append((q, k, v, kw))
-        return kref.flash_attention(q, k, v, **kw)
-
     with torch.inference_mode():
         lg, cache = dec.prefill(params, cfg_bf, prompts,
                                 max_len=SERVE_PROMPT + steps,
@@ -770,69 +928,11 @@ def main():
         dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None], cache,
                         flash_attention=recording_fa)
         dec_calls = recorded_fa[len(pre_calls):]
-        # the main path's own bf16 calls (strided views of the projections
-        # and of the stacked cache), kernel against plain
-        for label, calls in (("prefill", pre_calls), ("decode", dec_calls)):
-            errs, bad = [], 0
-            for q, k, v, kw in calls:
-                got = flash_attention.flash_attention(q, k, v, **kw).float()
-                want = kref.flash_attention(q, k, v, **kw).float()
-                errs.append(float((got - want).abs().max()))
-                bad += not torch.allclose(got, want, rtol=FLASH_TOL["bf16"],
-                                          atol=FLASH_TOL["bf16"])
-            say(f"[kernel] flash_attention on the bf16 {label}'s "
-                f"{len(calls)} recorded calls (model views, kv_len "
-                f"{sorted({kw.get('kv_len') for _, _, _, kw in calls}, key=str)}"
-                f"): max_abs_err={max(errs):.3e}, {bad} outside rtol=atol="
-                f"{FLASH_TOL['bf16']}")
-            if bad:
-                fail(f"flash_attention disagrees with its plain version on "
-                     f"{bad} of the bf16 {label}'s calls")
-            main_err["flash_attention"] = max(main_err["flash_attention"],
-                                              max(errs))
-        del got, want
+        main_path_check(pre_calls, "bf16 prefill", "bf16")
+        main_path_check(dec_calls, "bf16 decode step", "bf16")
     flush = torch.empty(64 * 2**20, device=dev)
-
-    def fa_bound(calls):
-        nbytes = flops = 0
-        for q, k, v, kw in calls:
-            b_, sq_, h_, hd_ = q.shape
-            kv_len = kw.get("kv_len") or k.shape[1]
-            pairs = int(kref._attention_mask(
-                sq_, k.shape[1], kw["causal"], kw["window"], kv_len,
-                dev).sum())
-            nbytes += 2 * nb(q) + 2 * b_ * kv_len * k.shape[2] * hd_ * \
-                k.element_size()
-            flops += 4 * b_ * h_ * hd_ * pairs
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-        return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
-
-    def sdpa_args(calls):
-        out = []
-        for q, k, v, kw in calls:
-            n = kw.get("kv_len") or k.shape[1]
-            out.append((q.transpose(1, 2).contiguous(),
-                        k[:, :n].transpose(1, 2).contiguous(),
-                        v[:, :n].transpose(1, 2).contiguous(),
-                        kw["causal"]))
-        return out
-
-    fa_times = {}
-    for label, calls in (("prefill", pre_calls), ("decode", dec_calls)):
-        lib_args = sdpa_args(calls)                       # copies untimed
-        k_ms, k_host = device_ms(lambda: [
-            flash_attention.flash_attention(q, k, v, **kw)
-            for q, k, v, kw in calls], reps=5)
-        p_ms, _ = device_ms(lambda: [kref.flash_attention(q, k, v, **kw)
-                                     for q, k, v, kw in calls], reps=5)
-        l_ms, _ = device_ms(lambda: [
-            torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=c, enable_gqa=True)
-            for q, k, v, c in lib_args], reps=5)
-        b_ms, b_by = fa_bound(calls)
-        fa_times[label] = (k_ms, p_ms, l_ms, b_ms, b_by, k_host)
-        del lib_args
+    fa_times["tc"] = route_times(pre_calls, BF16_FLOPS)
+    fa_times["decode"] = route_times(dec_calls, BF16_FLOPS)
     del pre_calls, dec_calls, recorded_fa, cache, flush
 
     # where a serving step's time goes: device time by kernel under
@@ -863,9 +963,11 @@ def main():
         f"{1 - busy['prefill'] / pre_ms:.3f}, decode "
         f"{1 - busy['decode'] / tok_ms:.3f} (busy time under the profiler "
         f"against the median host wall-clock of the timed runs)")
-    for label in ("prefill", "decode"):
-        k_ms, p_ms, l_ms, b_ms, b_by, k_host = fa_times[label]
-        say(f"[times] flash_attention, one bf16 {label} "
+    for route, use in (("tc", "one bf16 prefill"),
+                       ("decode", "one bf16 decode step"),
+                       ("cuda_core", "one f32 prefill")):
+        k_ms, p_ms, l_ms, b_ms, b_by, k_host = fa_times[route]
+        say(f"[times] flash_attention [{route} route], {use} "
             f"({layers_} launches): kernel_ms={k_ms:.4f} bound_ms="
             f"{b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
             f"(scaled_dot_product_attention, enable_gqa; layout copies "
@@ -909,16 +1011,23 @@ def main():
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:32",
-         "launches": n32 + n_bf,
-         "max_abs_err": main_err["flash_attention"],
-         "ms": fa_times["prefill"][0], "plain_ms": fa_times["prefill"][1],
-         "bound_ms": fa_times["prefill"][3],
-         "bound_by": fa_times["prefill"][4],
-         "library_ms": fa_times["prefill"][2]},
     ]
+    # flash attention a route: the prefill (tensor cores) keeps the
+    # kernel's name; times are one use (28 launches) of the main path
+    for name, route, source in (
+            ("flash_attention", "tc", "flash_attention_tc.cu"),
+            ("flash_attention_decode", "decode",
+             "flash_attention_decode.cu"),
+            ("flash_attention_cuda_core", "cuda_core",
+             "flash_attention.cu")):
+        k_ms, p_ms, l_ms, b_ms, b_by, _ = fa_times[route]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:32",
+            "launches": launches[route], "max_abs_err": fa_err[route],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

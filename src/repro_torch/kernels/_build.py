@@ -22,7 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("divergence", "aggregate", "uplink", "flash_attention")
+SOURCES = ("divergence", "aggregate", "uplink", "flash_attention",
+           "flash_attention_tc", "flash_attention_decode")
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
@@ -51,33 +52,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names=SOURCES) -> float:
+def build(names=SOURCES) -> dict[str, float]:
     """Compile every named source that has no current library, one ``nvcc``
-    process per source, all started together. Returns the wall seconds."""
+    process per source, all started together. Returns each compiled
+    source's wall seconds from the common start to its process's end."""
     t0 = time.perf_counter()
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
-        return time.perf_counter() - t0
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
+    procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            failed.append(f"{name}.cu:\n{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)   # atomic: concurrent builders are safe
+        with open(log, "wb") as f:
+            procs[name] = (out, tmp, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT))
+    seconds, failed = {}, []
+    while len(seconds) < len(procs):
+        for name, (out, tmp, log, proc) in procs.items():
+            if name in seconds or proc.poll() is None:
+                continue
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode:
+                failed.append(f"{name}.cu:\n"
+                              f"{log.read_bytes().decode(errors='replace')}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)   # atomic: concurrent builders are safe
+            log.unlink(missing_ok=True)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return time.perf_counter() - t0
+    return seconds
 
 
 def load(name: str, **signatures) -> ctypes.CDLL:

@@ -11,30 +11,43 @@
 // indices; kv_len <= Skv is the kernel's pad mask, which the decode step
 // uses for the filled prefix of its KV ring buffer.
 //
-// What bounds it on this card: operations at prefill, bytes at decode.
-// - Prefill (qwen3-1.7b: B = 4, 16 heads over 8 KV heads, S = 2048,
-//   hd = 128, causal): 2 * B * H * S^2 * hd = 68.7 GFLOP a layer against
-//   101 MB of q, k, v and o, so about 680 operations a byte, above the
-//   card's ratio. The least time is 69 us a layer at the bf16 tensor-core
-//   rate; this kernel runs on the CUDA cores, whose f32 peak (67 TFLOP/s)
-//   caps it at about 1 ms a layer.
-// - Decode (Sq = 1, kv_len up to 2080): every K/V row is read once for
-//   four operations per element, so bytes bound it (34 MB a layer).
+// Three routes compute it; kernels/flash_attention.py:route picks one from
+// the dtype and the shape alone, and a call launches that route's kernel or
+// raises (none gives way to another or to the plain version):
 //
-// What the design does about that (a simple kernel that is right first;
-// wgmma, TMA and grouping the heads of a KV group for decode are later):
-// - One block owns one (batch, head) and a tile of TQ = 16 * RQ query rows
-//   (RQ = 4 for prefill, RQ = 1 when Sq <= 16, as at decode). It walks the
-//   KV tiles of 64 keys in order, with the running max m, the denominator
-//   l and the output rows in registers: no atomics and no second pass. The
-//   TPU kernel instead revisited its m, l and o blocks across a sequential
-//   grid axis, which Hopper's unordered blocks cannot do.
+//   route       taken when                          kernel
+//   decode      Sq <= 16, f32 or bf16, any hd       flash_attention_decode.cu:
+//                                                   split-KV, grouped heads
+//   tc          Sq > 16, bf16, hd 64 or 128         flash_attention_tc.cu:
+//                                                   wgmma, TMA
+//   cuda_core   Sq > 16 and f32 (the exact-f32      this file: flash_fwd
+//               parity route), or bf16, hd 16, 32
+//
+// Every route takes the three masks with the tile skip, gives exactly 0 for
+// a fully masked row, reads KV head h / group for head h, and takes any
+// (batch, head, row) strides.
+//
+// This file is the CUDA-core route. What bounds it on this card:
+// operations. A prefill does about 680 operations a byte of q, k, v and o
+// (qwen3-1.7b: B = 4, 16 heads over 8 KV heads, S = 2048, hd = 128,
+// causal: 68.7 GFLOP a layer against 101 MB); on the CUDA cores, whose f32
+// peak is 67 TFLOP/s, that caps it at about 1 ms a layer. It keeps f32
+// products for the f32 parity route, and serves the head dims the tensor
+// cores' route does not take.
+//
+// What the design does about that (a simple kernel that is right):
+// - One block owns one (batch, head) and a tile of 64 query rows. It walks
+//   the KV tiles of 64 keys in order, with the running max m, the
+//   denominator l and the output rows in registers: no atomics and no
+//   second pass. The TPU kernel instead revisited its m, l and o blocks
+//   across a sequential grid axis, which Hopper's unordered blocks cannot
+//   do.
 // - The loop starts at the first tile the window allows and ends at the
 //   last tile that causality and kv_len allow, as the TPU kernel's tile
 //   skip does; keys at or past kv_len are neither read nor counted.
 // - 256 threads as 16 x 16: thread (ty, tx) computes scores for rows
-//   ty + 16 i and keys tx + 16 j (a 4 x 4 micro-tile at RQ = 4) and owns
-//   output columns tx + 16 d. Row max and row sum are shuffles within a
+//   ty + 16 i and keys tx + 16 j (a 4 x 4 micro-tile) and owns output
+//   columns tx + 16 d. Row max and row sum are shuffles within a
 //   half-warp. Q, K, V and the probabilities sit in shared memory as f32
 //   (rows padded by one float so the inner loops are free of bank
 //   conflicts): about 113 KB at hd = 128, so the block asks for dynamic
@@ -265,19 +278,13 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const Args& a, int batch, cudaStream_t stream) {
-  return a.sq <= 16 ? launch<T, HD, 1>(a, batch, stream)
-                    : launch<T, HD, 4>(a, batch, stream);
-}
-
 template <typename T>
 cudaError_t launch_t(const Args& a, int batch, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_hd<T, 16>(a, batch, stream);
-    case 32: return launch_hd<T, 32>(a, batch, stream);
-    case 64: return launch_hd<T, 64>(a, batch, stream);
-    case 128: return launch_hd<T, 128>(a, batch, stream);
+    case 16: return launch<T, 16, 4>(a, batch, stream);
+    case 32: return launch<T, 32, 4>(a, batch, stream);
+    case 64: return launch<T, 64, 4>(a, batch, stream);
+    case 128: return launch<T, 128, 4>(a, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

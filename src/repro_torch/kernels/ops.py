@@ -16,9 +16,11 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import uplink as _uplink
 
-# Every kernel the port launches, as its launch counter names it.
+# Every kernel the port launches, as its launch counter names it;
+# ``flash_attention`` counts all three of its routes' launches.
 KERNELS = ("sqdiff_rowsum", "masked_accumulate", "fused_uplink",
-           "fused_uplink_ef", "flash_attention")
+           "fused_uplink_ef", "flash_attention", "flash_attention_tc",
+           "flash_attention_decode", "flash_attention_cuda_core")
 
 
 def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ the order open), so the CUDA kernels can match them bit for bit.
 :func:`flash_attention` follows the Pallas kernel
 (``src/repro/kernels/flash_attention.py``), not its oracle: a row that no
 key may attend to gives 0 there, where :func:`ref_attention` (the port of
-the reference's oracle) gives the mean of V.
+the reference's oracle) gives the mean of V. :func:`flash_attention_split`
+models the decode kernel's split-KV partial-and-merge arithmetic; only the
+tests use it.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import math
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -138,6 +141,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.bmm(p.reshape(bkv, g * sq, skv), v.float())
     o = o.reshape(bkv, g, sq, hd) / l.clamp_min(1e-30)
+    return o.reshape(bh, sq, hd).to(q.dtype)
+
+
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, chunk: int, causal: bool = True,
+                          window: int = 0,
+                          kv_len: int | None = None) -> torch.Tensor:
+    """:func:`flash_attention` as the decode kernel computes it
+    (``csrc/flash_attention_decode.cu``), in the same layouts.
+
+    The visible keys ``[0, k_end)``, ``k_end = min(kv_len, Sq)`` if
+    ``causal`` else ``kv_len``, are cut into splits of ``chunk`` keys. Each
+    split keeps its partial ``(m, l, o)`` in f32, in the log2 domain: ``x =
+    (q·k)·scale·log2(e)``, ``m = max x`` (-inf when every key is masked),
+    ``p = exp2(x − m)`` (m taken as 0 then), ``l = Σ p``, ``o = Σ p·v``.
+    The merge weighs split s by ``exp2(m_s − max m)``, in split order, and
+    returns ``Σ w·o / Σ w·l``, or 0 for a row that sees no key.
+    """
+    if q.ndim == 4:
+        b, sq, h, hd = q.shape
+        skv, kvh = k.shape[1], k.shape[2]
+        o = flash_attention_split(
+            q.transpose(1, 2).reshape(b * h, sq, hd),
+            k.transpose(1, 2).reshape(b * kvh, skv, hd),
+            v.transpose(1, 2).reshape(b * kvh, skv, hd), chunk=chunk,
+            causal=causal, window=window, kv_len=kv_len)
+        return o.reshape(b, h, sq, hd).transpose(1, 2).contiguous()
+    bh, sq, hd = q.shape
+    bkv, skv, _ = k.shape
+    g = bh // bkv
+    kv_len = skv if kv_len is None else kv_len
+    k_end = min(kv_len, sq) if causal else kv_len
+    x = torch.bmm(q.float().reshape(bkv, g * sq, hd),
+                  k.float().transpose(1, 2)) * (LOG2E / math.sqrt(hd))
+    ok = _attention_mask(sq, skv, causal, window, kv_len, q.device)
+    x = torch.where(ok, x.reshape(bkv, g, sq, skv), -math.inf)
+    vf = v.float()
+    parts = []
+    for lo in range(0, max(k_end, 1), chunk):
+        hi = min(lo + chunk, k_end)
+        if hi <= lo:                    # kv_len = 0: one empty split
+            parts.append((torch.full((bkv, g, sq, 1), -math.inf,
+                                     device=q.device),
+                          torch.zeros((bkv, g, sq, 1), device=q.device),
+                          torch.zeros((bkv, g, sq, hd), device=q.device)))
+            continue
+        xs = x[..., lo:hi]
+        m = xs.amax(dim=-1, keepdim=True)
+        p = torch.exp2(xs - torch.where(m == -math.inf, 0.0, m))
+        o = torch.bmm(p.reshape(bkv, g * sq, hi - lo), vf[:, lo:hi])
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      o.reshape(bkv, g, sq, hd)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    m_all = torch.where(m_all == -math.inf, 0.0, m_all)
+    l_sum = torch.zeros_like(parts[0][1])
+    o_sum = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        w = torch.exp2(m - m_all)
+        l_sum = l_sum + w * l
+        o_sum = o_sum + w * o
+    o = torch.where(l_sum > 0, o_sum / l_sum.clamp_min(1e-30), 0.0)
     return o.reshape(bh, sq, hd).to(q.dtype)
 
 

@@ -223,3 +223,130 @@ def test_attend_on_cpu_takes_no_kernel_and_counts_nothing():
     tattn.attend(tq_, tk_, tv, causal=True)
     tattn.attend(tq_, tk_, tv, causal=True, flash_threshold=1, chunk=4)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+# The CUDA wrapper's route table and decode split plan are pure Python:
+# they are held here; the kernels themselves on the card
+# (tests/test_torch_gpu.py).
+@pytest.mark.parametrize("dtype,sq,hd,want", [
+    (torch.bfloat16, 1, 128, "decode"), (torch.float32, 1, 128, "decode"),
+    (torch.bfloat16, 16, 16, "decode"), (torch.float32, 16, 64, "decode"),
+    (torch.bfloat16, 17, 128, "tc"), (torch.bfloat16, 2048, 64, "tc"),
+    (torch.bfloat16, 40, 32, "cuda_core"), (torch.bfloat16, 64, 16,
+                                             "cuda_core"),
+    (torch.float32, 17, 128, "cuda_core"), (torch.float32, 2048, 64,
+                                            "cuda_core"),
+])
+def test_route_table(dtype, sq, hd, want):
+    assert tkf.route(dtype, sq, hd) == want
+    assert want in tkf.ROUTES
+
+
+def test_serving_shapes_never_take_the_cuda_core_route_in_bf16():
+    """Every configured model has hd 64 or 128: in bf16 its prefill takes
+    the tensor cores and its decode the split-KV kernel."""
+    from repro_torch.configs import ARCHS, get_config
+    for name in ARCHS:
+        hd = get_config(name).hd
+        if hd not in tkf.HEAD_DIMS:
+            continue
+        assert tkf.route(torch.bfloat16, 2048, hd) == "tc", name
+        assert tkf.route(torch.bfloat16, 1, hd) == "decode", name
+
+
+@pytest.mark.parametrize("hd,itemsize,tile", [
+    (128, 2, 64), (128, 4, 32), (64, 2, 128), (64, 4, 64), (32, 2, 128),
+    (32, 4, 128), (16, 2, 128), (16, 4, 128)])
+def test_decode_tile_is_16kb_of_keys_at_most_128(hd, itemsize, tile):
+    assert tkf.decode_tile(hd, itemsize) == tile
+
+
+@pytest.mark.parametrize("rows,rb", [(1, 2), (2, 2), (3, 8), (8, 8), (9, 16),
+                                     (16, 16), (128, 16)])
+def test_decode_row_block(rows, rb):
+    assert tkf.decode_row_block(rows) == rb
+
+
+@pytest.mark.parametrize("blocks", [1, 32, 132, 1000])
+@pytest.mark.parametrize("k_end", [0, 1, 64, 65, 2049, 40000])
+@pytest.mark.parametrize("tile", [32, 64, 128])
+def test_decode_plan_covers_the_keys_with_the_fewest_tiles_a_split(
+        blocks, k_end, tile):
+    splits, chunk = tkf.decode_plan(blocks, k_end, tile)
+    assert splits >= 1 and chunk % tile == 0 and chunk > 0
+    assert splits * chunk >= k_end
+    if k_end == 0:
+        assert splits == 1
+        return
+    assert (splits - 1) * chunk < k_end          # no split is past the keys
+    tiles = -(-k_end // tile)
+    want = -(-2 * tkf.H100_SMS // blocks)        # two blocks an SM
+    assert splits <= max(1, want)
+    # no plan with at most `want` splits has a lighter heaviest split
+    assert chunk // tile == -(-tiles // min(max(1, want), tiles))
+
+
+@pytest.mark.parametrize("kv_len", [2049, 2080])
+def test_decode_plan_at_qwen3_decode(kv_len):
+    """qwen3-1.7b at batch 4: 32 (batch, KV head) groups, bf16 hd 128 (64
+    keys a tile) -> 9 splits of 256 keys, 288 blocks on 132 SMs."""
+    assert tkf.decode_plan(32, kv_len, tkf.decode_tile(128, 2)) == (9, 256)
+
+
+SPLIT_TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 7, 17, 40, 48])
+@pytest.mark.parametrize("chunk", [1, 8, 64])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (False, 3),
+                                           (True, 5)])
+def test_split_model_matches_plain_and_pallas_kernel(kv_len, chunk, causal,
+                                                     window):
+    """The decode kernel's partial-and-merge arithmetic (plain model in
+    ref.py) against the plain flash attention and the Pallas kernel run on
+    the first kv_len keys (its pad mask), at 1e-5 in f32; chunk 1 makes
+    most splits of the early rows empty under causality."""
+    rng = np.random.default_rng(kv_len + 7 * chunk + window)
+    (jq, jk, jv), (tq_, tk_, tv) = _qkv(rng, (6, 5, 32), (3, 48, 32))
+    got = ref.flash_attention_split(tq_, tk_, tv, chunk=chunk, causal=causal,
+                                    window=window, kv_len=kv_len)
+    plain = ref.flash_attention(tq_, tk_, tv, causal=causal, window=window,
+                                kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **SPLIT_TOL)
+    if kv_len == 0:                      # one empty split: zeros, no NaN
+        assert np.all(got.numpy() == 0)
+        return
+    want = jflash(jq, jk[:, :kv_len], jv[:, :kv_len], causal=causal,
+                  window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(want), **SPLIT_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 7, 8])
+def test_split_model_fully_masked_rows_are_zero_as_the_pallas_kernel(group):
+    """16 query rows at window 3 over 4 keys: rows 6.. see no key. They
+    give exactly 0 through the merge, as in the Pallas kernel."""
+    rng = np.random.default_rng(group)
+    (jq, jk, jv), (tq_, tk_, tv) = _qkv(rng, (2 * group, 16, 16),
+                                        (2, 20, 16))
+    got = ref.flash_attention_split(tq_, tk_, tv, chunk=2, causal=False,
+                                    window=3, kv_len=4).numpy()
+    want = np.asarray(jflash(jq, jk[:, :4], jv[:, :4], causal=False,
+                             window=3, interpret=True))
+    assert np.all(got[:, 6:] == 0) and np.all(want[:, 6:] == 0)
+    assert np.isfinite(got).all() and np.abs(got[:, :6]).max() > 0.1
+    np.testing.assert_allclose(got, want, **SPLIT_TOL)
+
+
+def test_split_model_takes_the_model_layout_and_the_kernel_plan():
+    """A decode step's (B, 1, H, hd) query against a (B, Skv, KV, hd)
+    cache, cut as the wrapper's plan cuts it, equals the plain version."""
+    b, h, kvh, hd, skv, kv_len = 2, 4, 2, 32, 300, 257
+    rng = np.random.default_rng(5)
+    _, (tq_, tk_, tv) = _qkv(rng, (b, 1, h, hd), (b, skv, kvh, hd))
+    tile = tkf.decode_tile(hd, 4)
+    splits, chunk = tkf.decode_plan(b * kvh, kv_len, tile)
+    assert splits > 1
+    got = ref.flash_attention_split(tq_, tk_, tv, chunk=chunk, causal=False,
+                                    kv_len=kv_len)
+    want = ref.flash_attention(tq_, tk_, tv, causal=False, kv_len=kv_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **SPLIT_TOL)

@@ -1,6 +1,7 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions,
 a round on the card against the same round on the CPU, and the serving path
-through the flash-attention kernel.
+through the flash-attention kernels (all three routes: tensor-core prefill,
+split-KV decode, CUDA cores).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -294,6 +295,10 @@ def test_cuda_flash_attention_matches_plain(cuda, case, dtype):
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window),
            dtype)
     assert ops.launch_counts()["flash_attention"] == 1
+    route = tkf.route(q.dtype, sq, hd)
+    assert ops.launch_counts()[f"flash_attention_{route}"] == 1
+    assert route == ("tc" if dtype == "bf16" and hd in (64, 128)
+                     else "cuda_core")
 
 
 def test_cuda_flash_attention_fully_masked_rows_are_zero(cuda):
@@ -322,12 +327,14 @@ def test_cuda_flash_attention_full_width(cuda, shape):
                                 "bf16", 1)
         _close(ops.flash_attention(q, k, v, causal=True),
                ref.flash_attention(q, k, v, causal=True), "bf16")
+        assert ops.launch_counts()["flash_attention_tc"] == 1
         return
     q, k, v = _flash_inputs(cuda, (64, 1, 128), (32, 2080, 128), "bf16", 2)
     for kv_len in (1, 2049, 2080):
         _close(ops.flash_attention(q, k, v, causal=False, kv_len=kv_len),
                ref.flash_attention(q, k, v, causal=False, kv_len=kv_len),
                "bf16")
+    assert ops.launch_counts()["flash_attention_decode"] == 3
 
 
 def test_cuda_flash_attention_takes_model_views(cuda):
@@ -400,8 +407,13 @@ def test_cuda_decode_matches_forward_through_the_kernel(cuda):
         outs[str(dev)] = torch.stack(steps).cpu()
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
                                atol=1e-4)
-    # forward once, prefill once, 10 decode steps: 2 layers each
-    assert ops.launch_counts()["flash_attention"] == 2 * 12
+    # forward once, prefill once, 10 decode steps: 2 layers each; the f32
+    # forward (20 rows) takes the CUDA cores, the 10-row prefill and the
+    # decode steps (Sq <= 16) the split-KV kernel
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * 12
+    assert counts["flash_attention_cuda_core"] == 2 * 1
+    assert counts["flash_attention_decode"] == 2 * 11
 
 
 def test_cuda_serving_launches_once_per_layer_at_full_depth(cuda):
@@ -412,11 +424,159 @@ def test_cuda_serving_launches_once_per_layer_at_full_depth(cuda):
     params = ttf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
                              cuda)
     toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda)
+    pre = f"flash_attention_{tkf.route(torch.bfloat16, 24, cfg.hd)}"
     with torch.inference_mode():
         lg, cache = tdec.prefill(params, cfg, toks, max_len=28)
         assert ops.launch_counts()["flash_attention"] == 28
+        assert ops.launch_counts()[pre] == 28
         for i in range(3):
             lg, cache = tdec.decode_step(params, cfg, lg.argmax(-1)[:, None],
                                          cache)
             assert ops.launch_counts()["flash_attention"] == 28 * (i + 2)
+            assert ops.launch_counts()["flash_attention_decode"] == \
+                28 * (i + 1)
     assert bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.vocab_size)
+
+
+# -- the two new routes: split-KV decode and tensor-core prefill ----------
+def _bshd(device, b, sq, h, kvh, skv, hd, dtype, seed):
+    """(B, S, H, hd) q and (B, Skv, KV, hd) k, v."""
+    return _flash_inputs(device, (b, sq, h, hd), (b, skv, kvh, hd), dtype,
+                         seed)
+
+
+@pytest.mark.parametrize("sq", [1, 5, 16])
+@pytest.mark.parametrize("group", [1, 2, 7, 8])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_decode_route_matches_plain(cuda, sq, group, dtype):
+    """Sq <= 16 over grouped heads, kv_len at 0, 1, a split boundary ± 1
+    and Skv, causal and windowed."""
+    b, kvh, skv, hd = 2, 2, 600, 128
+    q, k, v = _bshd(cuda, b, sq, kvh * group, kvh, skv, hd, dtype,
+                    sq + group)
+    rows = group * sq
+    blocks = b * kvh * -(-rows // tkf.decode_row_block(rows))
+    _, chunk = tkf.decode_plan(blocks, skv,
+                               tkf.decode_tile(hd, q.element_size()))
+    n = 0
+    for kv_len in (0, 1, chunk - 1, chunk, chunk + 1, skv):
+        for causal, window in ((False, 0), (True, 0), (False, 9)):
+            kw = {"causal": causal, "window": window, "kv_len": kv_len}
+            got = ops.flash_attention(q, k, v, **kw)
+            assert bool(torch.isfinite(got).all())
+            _close(got, ref.flash_attention(q, k, v, **kw), dtype)
+            n += 1
+    counts = ops.launch_counts()
+    assert counts["flash_attention_decode"] == counts["flash_attention"] == n
+
+
+def test_cuda_flash_decode_splits_merge_in_a_fixed_order(cuda):
+    """Many splits (qwen3-1.7b's decode shape): the merge has no atomics,
+    so two calls agree bit for bit."""
+    q, k, v = _bshd(cuda, 4, 1, 16, 8, 2081, 128, "bf16", 4)
+    splits, _ = tkf.decode_plan(32, 2049, tkf.decode_tile(128, 2))
+    assert splits > 1
+    first = ops.flash_attention(q, k, v, causal=False, kv_len=2049)
+    again = ops.flash_attention(q, k, v, causal=False, kv_len=2049)
+    assert torch.equal(first, again)
+    _close(first, ref.flash_attention(q, k, v, causal=False, kv_len=2049),
+           "bf16")
+
+
+# (hd, sq, skv, kv_len, causal, window): ragged Sq (33, 40, 100, 129, 300),
+# kv_len < Skv, windows, kv_len = 0 and one tile exactly
+TC_CASES = [(64, 33, 65, 65, False, 0), (128, 40, 40, 40, True, 0),
+            (64, 100, 100, 100, True, 0), (128, 40, 200, 150, True, 0),
+            (64, 300, 300, 300, True, 17), (128, 300, 300, 0, True, 0),
+            (128, 129, 300, 257, False, 100), (64, 128, 128, 128, True, 0),
+            (128, 17, 17, 17, True, 5), (128, 256, 256, 200, False, 0)]
+
+
+@pytest.mark.parametrize("case", TC_CASES,
+                         ids=[str(i) for i in range(len(TC_CASES))])
+def test_cuda_flash_tc_route_matches_plain(cuda, case):
+    hd, sq, skv, kv_len, causal, window = case
+    q, k, v = _bshd(cuda, 2, sq, 4, 2, skv, hd, "bf16", sum(case[:4]))
+    kw = {"causal": causal, "window": window, "kv_len": kv_len}
+    got = ops.flash_attention(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref.flash_attention(q, k, v, **kw), "bf16")
+    if kv_len == 0:
+        assert bool((got == 0).all())
+    assert ops.launch_counts()["flash_attention_tc"] == 1
+
+
+@pytest.mark.parametrize("route", ["tc", "decode"])
+def test_cuda_flash_new_routes_fully_masked_rows_are_zero(cuda, route):
+    if route == "tc":           # q 64 x k 16 at window 8: rows 23.. see none
+        q, k, v = _flash_inputs(cuda, (2, 64, 64), (2, 16, 64), "bf16", 0)
+        kw, masked = {"causal": False, "window": 8}, slice(23, None)
+    else:                       # 16 rows at window 3 over 4 keys: rows 6..
+        q, k, v = _flash_inputs(cuda, (4, 16, 64), (2, 20, 64), "f32", 0)
+        kw, masked = ({"causal": False, "window": 3, "kv_len": 4},
+                      slice(6, None))
+    got = ops.flash_attention(q, k, v, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, masked] == 0).all())
+    _close(got, ref.flash_attention(q, k, v, **kw),
+           "bf16" if route == "tc" else "f32")
+    assert ops.launch_counts()[f"flash_attention_{route}"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_new_routes_take_model_views(cuda, dtype):
+    """(B, S, H, hd) views of a (B, S, H·hd) projection and slices of a
+    stacked cache go in without copies: bf16 prefill on the tensor cores,
+    a decode step on the split-KV kernel."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qp = torch.randn(2, 40, 4 * 64, generator=g, device=cuda,
+                     dtype=DTYPES[dtype])
+    cache = torch.randn(3, 2, 48, 2, 64, generator=g, device=cuda,
+                        dtype=DTYPES[dtype])
+    q, k, v = qp.view(2, 40, 4, 64), cache[1][:, :40], cache[2][:, :40]
+    assert not k.is_contiguous()
+    _close(ops.flash_attention(q, k, v, causal=True, window=5),
+           ref.flash_attention(q, k, v, causal=True, window=5), dtype)
+    one = qp[:, 7:8].view(2, 1, 4, 64)
+    assert not one.is_contiguous()
+    _close(ops.flash_attention(one, cache[1], cache[2], causal=False,
+                               kv_len=33),
+           ref.flash_attention(one, cache[1], cache[2], causal=False,
+                               kv_len=33), dtype)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_decode"] == 1
+    assert counts["flash_attention_tc" if dtype == "bf16"
+                  else "flash_attention_cuda_core"] == 1
+
+
+def test_cuda_flash_each_call_counts_its_route(cuda):
+    calls = [((2, 40, 4, 64), "bf16", "tc"), ((2, 40, 4, 32), "bf16",
+                                               "cuda_core"),
+             ((2, 40, 4, 64), "f32", "cuda_core"), ((2, 1, 4, 64), "bf16",
+                                                     "decode"),
+             ((2, 16, 4, 16), "f32", "decode")]
+    for i, (shape, dtype, route) in enumerate(calls):
+        b, sq, h, hd = shape
+        assert tkf.route(DTYPES[dtype], sq, hd) == route
+        before = ops.launch_counts()
+        ops.flash_attention(*_bshd(cuda, b, sq, h, 2, 40, hd, dtype, i))
+        after = ops.launch_counts()
+        moved = {n for n in ops.KERNELS if after[n] != before[n]}
+        assert moved == {"flash_attention", f"flash_attention_{route}"}
+
+
+def test_cuda_flash_new_routes_reject_bad_inputs(cuda):
+    q, k, v = _bshd(cuda, 1, 40, 4, 2, 40, 64, "bf16", 0)
+    with pytest.raises(ValueError):                     # 8-byte offset
+        base = torch.randn(40 * 2 * 64 + 4, device=cuda,
+                           dtype=torch.bfloat16)[4:]
+        tkf.flash_attention(q, base.view(1, 40, 2, 64), v)
+    with pytest.raises(RuntimeError, match="backward"):
+        tkf.flash_attention(q.clone().requires_grad_(), k, v)
+    with pytest.raises(ValueError):                     # kv_len > Skv
+        tkf.flash_attention(q[:, :1], k, v, kv_len=41)
+    with pytest.raises(ValueError):                     # hd 48
+        tkf.flash_attention(*_bshd(cuda, 1, 1, 4, 2, 8, 48, "bf16", 0))
+    with pytest.raises(TypeError):                      # dtype mix
+        tkf.flash_attention(q[:, :1], k.float(), v)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
