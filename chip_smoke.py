@@ -10,12 +10,22 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
 3. kernels vs their plain PyTorch versions on the card, over the reference
    test sweeps (``tests/test_kernels.py`` SHAPES, f32 and bf16, at
    rtol=3e-3, atol=1e-5; ``tests/test_wire.py``'s uplink shapes, f32 and
-   bf16 v/e_old, at rtol=3e-5, atol=1e-5) and the main path's shapes;
+   bf16 v/e_old, at rtol=3e-5, atol=1e-5; ``masked_accumulate`` and
+   ``fused_uplink`` bit for bit) and the main path's shapes; the two
+   leaf-table kernels, which cover a list of leaves in one launch, bit for
+   bit over VGG-9's 34 full-width leaves (f32 and bf16 x, in place, rows
+   with w = 0; the uplink at K = 20 with fedldf's w = 0 rows and with
+   every w non-zero), SHAPES (1, 1), (9, 2049), (62, 33) as one-entry and
+   mixed tables (a scalar leaf, a misaligned view), 100 leaves in 3
+   launches, and w = 0 uplink rows whose inf, NaN or huge scale must give
+   the plain NaN;
 4. ``run_training`` in ``mode="vmap"`` for 3 rounds on full-width VGG-9
    with the paper's FL setup (N=50, K=20, n=4, B=32, lr=0.05, fedldf);
    one round's divergence matrix, selection and new params are held
    against the same round computed with the plain Eq. 3 reduction;
-5. the same in ``mode="scan"``; its round must match phase 4's to 2e-5;
+5. the same in ``mode="scan"``; its round must match phase 4's to 2e-5,
+   and it must launch ``masked_accumulate`` once a client (20 a round,
+   each over the client's leaf table);
 6. the packed compressed uplink, setting A (int8 levels, error feedback):
    ``run_training`` for 3 rounds, exact uplink bytes, the (50, ...)
    residual store and 34 ``fused_uplink_ef`` launches a round; one round
@@ -23,9 +33,13 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    (identical selection and levels, params within 2e-5) and against the
    legacy unfused chain (relative L2 below 1e-4);
 7. setting B (int4 levels, no error feedback): 2 rounds, exact uplink
-   bytes, 34 ``fused_uplink`` launches a round, one round against plain;
+   bytes, 1 ``fused_uplink`` launch a round (over the 34 leaves), one round
+   against plain, and the kernel on the round's own call, bit for bit;
 8. kernel times at the main path's shapes beside the byte bound, the plain
-   version and a library call, and each path's round time;
+   version and a library call, and each path's round time; for the two
+   leaf-table kernels also the single-leaf entry a leaf, and
+   ``torch._foreach_addcmul_`` (with its kernel count) or every w
+   non-zero; one scan-round client's Eq. 3 (34 ``sqdiff_rowsum`` at K=1);
 9. serving full-width, full-depth qwen3-1.7b in f32 (TF32 off): batch 4, a
    2048-token prompt from a numpy seed, 32 greedy decode steps, through
    the flash-attention kernel, then the same steps through its plain
@@ -73,6 +87,9 @@ NUM_TRAIN = 10_000          # the paper's 50,000 cut 5x (set-up time)
 TOL = {"rtol": 3e-3, "atol": 1e-5}  # tests/test_kernels.py:33,45
 UPLINK_TOL = {"rtol": 3e-5, "atol": 1e-5}  # tests/test_wire.py:187,206
 EQUIV_TOL = 2e-5            # benchmarks/round_engine_bench.py:59
+EXACT = {"rtol": 0.0, "atol": 0.0}   # the leaf-table kernels vs plain
+# the leaf tables' reference SHAPES (one-entry and mixed tables)
+TABLE_SHAPES = [(1, 1), (9, 2049), (62, 33)]
 # tests/test_kernels.py:18
 SHAPES = [(1, 1), (1, 37), (4, 1000), (8, 2048), (9, 2049), (48, 5000),
           (3, 16384), (62, 33)]
@@ -198,7 +215,7 @@ def main():
             acc, x, w = randn(shape), randn(shape, dtype), randn(shape[:1])
             compare(f"masked_accumulate {shape} {dn}",
                     aggregate.masked_accumulate(acc, x, w),
-                    kref.masked_accumulate(acc, x, w))
+                    kref.masked_accumulate(acc, x, w), EXACT)
     main_err = {"sqdiff_rowsum": 0.0, "masked_accumulate": 0.0}
     big = 3 * 3 * 512 * 512                   # VGG-9 conv7.w, one row
     for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -212,7 +229,8 @@ def main():
         acc, x, w = randn((1, big)), randn((1, big), dtype), randn((1,))
         want = kref.masked_accumulate(acc, x, w)
         got = aggregate.masked_accumulate(acc, x, w, out=acc)   # in place
-        e = compare(f"masked_accumulate (1, {big}) in place {dn}", got, want)
+        e = compare(f"masked_accumulate (1, {big}) in place {dn}", got, want,
+                    EXACT)
         if dtype == torch.float32:
             main_err["masked_accumulate"] = e
 
@@ -228,7 +246,7 @@ def main():
     for shape in UPLINK_SHAPES + [big_uplink]:
         lv, sc, w = uplink_inputs(shape)
         e = compare(f"fused_uplink {shape}", uplink.fused_uplink(lv, sc, w),
-                    kref.fused_uplink(lv, sc, w), UPLINK_TOL)
+                    kref.fused_uplink(lv, sc, w), EXACT)
         if shape == big_uplink:
             main_err["fused_uplink"] = e
     for shape in UPLINK_EF_SHAPES + [big_uplink]:
@@ -251,6 +269,119 @@ def main():
             if shape == big_uplink and dtype == torch.float32:
                 main_err["fused_uplink_ef"] = max(e1, e2)
     del lv, sc, w, gate, v, e_old, num, res, want_num, want_res
+
+    # the leaf-table kernels: a list of leaves in one launch (one a chunk of
+    # 48), bit for bit; VGG-9's 34 full-width leaves as the round sees
+    # them, the reference SHAPES as one-entry and mixed tables (a scalar
+    # leaf and a misaligned view among vectorised ones), a table longer
+    # than one launch holds, and the uplink's skip of w = 0 rows
+    vgg_shapes = [(1, leaf.numel()) for leaf in tree_leaves(init_params(
+        vgg9.config(), torch.Generator().manual_seed(SEED), "cpu"))]
+
+    def macc_table(shapes, dtype):
+        """(acc, x, w) a leaf; every third leaf's weights are 0."""
+        accs, xs, ws = [], [], []
+        for i, shape in enumerate(shapes):
+            accs.append(randn(shape))
+            xs.append(randn(shape, dtype))
+            ws.append(randn(shape[:1]) * (i % 3 != 0))
+        return accs, xs, ws
+
+    def check_macc_table(label, accs, xs, ws, chunks):
+        want = [kref.masked_accumulate(a, x, w) for a, x, w in
+                zip(accs, xs, ws)]
+        before = ops.launch_counts()["masked_accumulate"]
+        aggregate.masked_accumulate_leaves(accs, xs, ws)      # in place
+        launched = ops.launch_counts()["masked_accumulate"] - before
+        err = max(compare(f"masked_accumulate_leaves {label}, leaf {i}", a,
+                          b, EXACT, quiet=True)
+                  for i, (a, b) in enumerate(zip(accs, want)))
+        say(f"[kernel] masked_accumulate_leaves {label}: {len(accs)} leaves "
+            f"in {launched} launch(es) (want {chunks}), in place: "
+            f"max_abs_err={err:.3e} (exact)")
+        if launched != chunks:
+            failures.append(f"masked_accumulate_leaves {label}: {launched} "
+                            f"launches, expected {chunks}")
+        return err
+
+    def uplink_table(shapes, k, dense=False):
+        """(levels, scales, w) a leaf of k clients; unless dense, 4 of
+        every 5 clients have w = 0 (fedldf's n = 4 of K = 20)."""
+        levels, scales, ws = [], [], []
+        for r, c in shapes:
+            lv, sc, w = uplink_inputs((k, r, c))
+            if not dense:
+                w[torch.arange(k, device=dev) % 5 != 0] = 0.0
+            levels.append(lv)
+            scales.append(sc)
+            ws.append(w)
+        return levels, scales, ws
+
+    def check_uplink_table(label, levels, scales, ws, chunks):
+        """Bit for bit, NaN where the plain version has NaN."""
+        want = kref.fused_uplink_leaves(levels, scales, ws)
+        before = ops.launch_counts()["fused_uplink"]
+        got = uplink.fused_uplink_leaves(levels, scales, ws)
+        launched = ops.launch_counts()["fused_uplink"] - before
+        torch.cuda.synchronize()
+        err, bad, nans = 0.0, 0, 0
+        for a, b in zip(got, want):
+            nan = torch.isnan(b)
+            nans += int(nan.sum())
+            if not (torch.equal(torch.isnan(a), nan)
+                    and torch.equal(a[~nan], b[~nan])):
+                bad += 1
+            if bool((~nan).any()):
+                err = max(err, float((a[~nan] - b[~nan]).abs().max()))
+        say(f"[kernel] fused_uplink_leaves {label}: {len(got)} leaves in "
+            f"{launched} launch(es) (want {chunks}): max_abs_err={err:.3e} "
+            f"(exact), {nans} NaN as plain, {bad} leaves differ")
+        if bad or launched != chunks:
+            failures.append(f"fused_uplink_leaves {label}: {bad} leaves "
+                            f"differ, {launched} launches")
+        return err
+
+    for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        e = check_macc_table(f"VGG-9 full table {dn}",
+                             *macc_table(vgg_shapes, dtype), 1)
+        if dtype == torch.float32:
+            main_err["masked_accumulate"] = max(
+                main_err["masked_accumulate"], e)
+        for shape in TABLE_SHAPES:
+            check_macc_table(f"{shape} one-entry {dn}",
+                             *macc_table([shape], dtype), 1)
+        accs, xs, ws = macc_table(TABLE_SHAPES + [(1, 4096), (4, 1000),
+                                                  (1, 10)], dtype)
+        accs[3] = torch.randn(4097, generator=gen, device=dev)[1:].view(
+            1, 4096)                                # 4 bytes off 16
+        check_macc_table(f"mixed {dn}", accs, xs, ws, 1)
+    check_macc_table("100 leaves", *macc_table(
+        [(1 + i % 3, 16 * (1 + i % 5)) for i in range(100)],
+        torch.float32), 3)
+    for dense, rows in ((False, "16 of 20 rows w=0"),
+                        (True, "every w non-zero")):
+        e = check_uplink_table(f"VGG-9 full table K=20, {rows}",
+                               *uplink_table(vgg_shapes, 20, dense), 1)
+        main_err["fused_uplink"] = max(main_err["fused_uplink"], e)
+    for shape in TABLE_SHAPES:
+        check_uplink_table(f"{shape} K=5 one-entry",
+                           *uplink_table([shape], 5), 1)
+    levels, scales, ws = uplink_table(TABLE_SHAPES + [(1, 4096), (3, 1000),
+                                                      (1, 10)], 5)
+    levels[3] = torch.randint(-127, 128, (5 * 4096 + 1,), generator=gen,
+                              device=dev, dtype=torch.int8)[1:].view(
+                                  5, 1, 4096)         # 1 byte off 16
+    check_uplink_table("mixed K=5", levels, scales, ws, 1)
+    check_uplink_table("100 leaves K=3", *uplink_table(
+        [(1 + i % 2, 16 * (1 + i % 7)) for i in range(100)], 3), 3)
+    levels, scales, ws = uplink_table([(1, 4096), (2, 10)] * 3, 5)
+    for i, bad in enumerate((math.inf, math.nan, 3e38)):
+        for j, (k_, r_) in enumerate(((1, 0), (1, 1))):
+            ws[2 * i + j][k_, r_] = 0.0
+            scales[2 * i + j][k_, r_] = bad
+    check_uplink_table("w=0 rows with scale inf, NaN, 3e38 (not skipped)",
+                       levels, scales, ws, 1)
+    del accs, xs, ws, levels, scales
 
     fa_err = dict.fromkeys(flash_attention.ROUTES, 0.0)
     fa_seen = dict.fromkeys(flash_attention.ROUTES, 0)
@@ -452,8 +583,11 @@ def main():
 
     # ---- 5. scan rounds at full width ----------------------------------
     p_scan, counts_s, _ = drive(fl_s, "scan")
-    if counts_s["masked_accumulate"] == 0:
-        fail("scan rounds launched no masked_accumulate kernel")
+    if counts_s["masked_accumulate"] != fl_s.clients_per_round * ROUNDS:
+        fail(f"scan rounds launched {counts_s['masked_accumulate']} "
+             f"masked_accumulate kernels, expected "
+             f"{fl_s.clients_per_round} a round (one a client, over its "
+             f"leaf table)")
     round_s = build_round_scan(loss_fn, umap, fl_s)
     new_s, m_s = round_s(params0, batch, sizes)
     if not torch.equal(m_s["selection"], m_v["selection"]):
@@ -490,7 +624,7 @@ def main():
     divs_k = umap.divergence(locals_, params0)   # the same round's Eq. 3
     sel_k = topn_divergence(divs_k, fl_v.top_n)
     idx = torch.from_numpy(clients).to(dev)
-    recorded = {"fused_uplink": [], "fused_uplink_ef": []}
+    recorded = {"fused_uplink_leaves": [], "fused_uplink_ef": []}
 
     def recording(name):
         plain = getattr(kref, name)
@@ -514,18 +648,21 @@ def main():
         """One round of ``fl``: round_fn (kernels) against the same round
         through the plain uplink kernels on the same locals; returns the
         round function and its metrics."""
-        name = ("fused_uplink_ef" if fl.compression.error_feedback
-                else "fused_uplink")
-        if counts[name] != len(tree_leaves(params0)) * rounds:
-            fail(f"setting {label}: {counts[name]} {name} launches, "
-                 f"expected {len(tree_leaves(params0))} a round")
+        ef = fl.compression.error_feedback
+        name = "fused_uplink_ef" if ef else "fused_uplink"
+        entry = "fused_uplink_ef" if ef else "fused_uplink_leaves"
+        # with error feedback a launch a leaf, without one over the table
+        want = len(tree_leaves(params0)) if ef else 1
+        if counts[name] != want * rounds:
+            fail(f"setting {label}: {counts[name]} {name} launches in "
+                 f"{rounds} rounds, expected {want} a round")
         round_c = build_round_vmap(loss_fn, umap, fl)
         new_c, m_c = round_c(params0, batch, sizes, rows)
         strat = make_strategy(fl)
         res_rows = None if rows is None else rows["client"]["residual"]
         new_p, rows_p, wire_p = strat.uplink_round(
             locals_, params0, umap, sel_k, divs_k, sizes, res_rows,
-            **{name: recording(name)})
+            **{entry: recording(entry)})
         if not torch.equal(m_c["selection"], sel_k):
             fail(f"setting {label}: round selection differs from the plain "
                  "round's")
@@ -579,6 +716,12 @@ def main():
     _, counts_b, _ = drive(fl_b, "B", rounds=ROUNDS_B)
     round_b, _, _ = packed_checks(fl_b, "B", counts_b, ROUNDS_B,
                                      None)
+    # the kernel on the round's own call (the 34 leaves it was handed)
+    up_call = recorded["fused_uplink_leaves"][0]
+    e = check_uplink_table("setting B round's own call", *up_call, 1)
+    main_err["fused_uplink"] = max(main_err["fused_uplink"], e)
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
 
     # ---- 8. times ------------------------------------------------------
     flush = torch.empty(64 * 2**20, device=dev)     # 256 MB > 50 MB L2
@@ -625,27 +768,60 @@ def main():
                                         for a, b in sq_pairs])
     sq_plain, _ = device_ms(lambda: [kref.sqdiff_rowsum(a, b)
                                      for a, b in sq_pairs])
-    # masked_accumulate: one client's Eq. 5 streaming add (scan round)
-    frac = m_s["selection"][0] * 0.05
-    acc = {key: {n_: torch.zeros_like(v) for n_, v in sub.items()}
-           for key, sub in params0.items()}
-    local0 = {key: {n_: v[0].contiguous() for n_, v in sub.items()}
-              for key, sub in locals_.items()}
-    ma_triples = []
+    # sqdiff_rowsum: one scan-round client's Eq. 3, a launch per leaf, K=1
+    local0 = tree_map(lambda v: v[0].contiguous(), locals_)
+    sq1_pairs = []
     for key, (off, n) in umap.spans.items():
-        for a, x in zip(tree_leaves(acc[key]), tree_leaves(local0[key])):
-            ma_triples.append((a.view(n, -1), x.reshape(n, -1),
-                               frac[off:off + n]))
+        for a, b in zip(tree_leaves(local0[key]), tree_leaves(params0[key])):
+            sq1_pairs.append((a.reshape(n, -1), b.reshape(n, -1)))
+    sq1_bound, sq1_by = bound_ms(
+        sum(nb(a) + nb(b) + a.shape[0] * 4 for a, b in sq1_pairs),
+        sum(3 * a.numel() for a, _ in sq1_pairs))
+    sq1_ms, sq1_host = device_ms(lambda: [divergence.sqdiff_rowsum(a, b)
+                                          for a, b in sq1_pairs])
+    sq1_plain, _ = device_ms(lambda: [kref.sqdiff_rowsum(a, b)
+                                      for a, b in sq1_pairs])
+    # masked_accumulate: one client's Eq. 5 streaming add (scan round), the
+    # (acc, x, w) triples UnitMap.accumulate hands the kernel, recorded
+    # through its per-leaf argument
+    frac = m_s["selection"][0] * 0.05
+    acc = tree_map(torch.zeros_like, params0)
+    ma_triples = []
+
+    def record_macc(a, x, w):
+        ma_triples.append((a, x, w))
+        return kref.masked_accumulate(a, x, w)
+
+    umap.accumulate(acc, local0, frac, masked_accumulate=record_macc)
+    ma_accs, ma_xs, ma_ws = (list(t) for t in zip(*ma_triples))
+    e = check_macc_table("one scan-round client's own triples",
+                         [a.clone() for a in ma_accs], ma_xs, ma_ws, 1)
+    main_err["masked_accumulate"] = max(main_err["masked_accumulate"], e)
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
     ma_bytes = sum(2 * nb(a) + nb(x) + nb(w) for a, x, w in ma_triples)
     ma_flops = sum(2 * a.numel() for a, _, _ in ma_triples)
     ma_bound, ma_by = bound_ms(ma_bytes, ma_flops)
-    ma_ms, ma_host = device_ms(lambda: [
+    ma_ms, ma_host = device_ms(lambda: aggregate.masked_accumulate_leaves(
+        ma_accs, ma_xs, ma_ws))
+    ma_loop, ma_loop_host = device_ms(lambda: [
         aggregate.masked_accumulate(a, x, w, out=a)
         for a, x, w in ma_triples])
     ma_plain, _ = device_ms(lambda: [kref.masked_accumulate(a, x, w, out=a)
                                      for a, x, w in ma_triples])
     ma_lib, _ = device_ms(lambda: [a.addcmul_(w[:, None], x)
                                    for a, x, w in ma_triples])
+    ma_w2 = [w[:, None] for w in ma_ws]
+    ma_fe, _ = device_ms(lambda: torch._foreach_addcmul_(ma_accs, ma_xs,
+                                                         ma_w2))
+    # does the foreach call run as one multi-tensor launch? count its
+    # kernels under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch._foreach_addcmul_(ma_accs, ma_xs, ma_w2)
+        torch.cuda.synchronize()
+    fe_kernels = sum(ev.count for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
     # the single largest leaf alone (conv7.w)
     s7, b7 = max(sq_pairs, key=lambda p: p[0].numel())
     big_sq, _ = device_ms(lambda: divergence.sqdiff_rowsum(s7, b7))
@@ -657,18 +833,28 @@ def main():
     big_ma_lib, _ = device_ms(lambda: m7.addcmul_(w7[:, None], x7))
     big_ma_bound, _ = bound_ms(2 * nb(m7) + nb(x7) + nb(w7), 2 * m7.numel())
 
-    # fused_uplink_ef / fused_uplink: one setting-A / setting-B round's 34
-    # launches, with the arguments the round gave the kernels
-    ef_calls, up_calls = recorded["fused_uplink_ef"], recorded["fused_uplink"]
+    # fused_uplink_ef: one setting-A round's 34 launches; fused_uplink: one
+    # setting-B round's call over its 34 leaves; the arguments the round
+    # gave the kernels
+    ef_calls = recorded["fused_uplink_ef"]
+    up_leaves = list(zip(*up_call))
 
     def ef_bytes(a):
         lv, sc, w, g, v, e = a
         return (nb(lv) + nb(sc) + nb(w) + nb(g) + nb(v) + nb(e)
                 + lv[0].numel() * 4 + lv.numel() * 4)     # num, res
 
-    def up_bytes(a):
+    def up_bytes(a, live_only=False):
+        """Levels of every client row, or (live_only) of the rows with
+        w != 0, which are all the skip reads; scales, w and num."""
         lv, sc, w = a
-        return nb(lv) + nb(sc) + nb(w) + lv[0].numel() * 4
+        rows = int((w != 0).sum()) if live_only else w.numel()
+        return rows * lv.shape[2] + nb(sc) + nb(w) + lv[0].numel() * 4
+
+    def up_flops(a, live_only=False):
+        lv, _, w = a
+        return 3 * lv.shape[2] * (int((w != 0).sum()) if live_only
+                                  else w.numel())
 
     ef_nbytes = sum(ef_bytes(a) for a in ef_calls)
     ef_bound, ef_by = bound_ms(ef_nbytes,
@@ -680,20 +866,32 @@ def main():
     e7 = max(ef_calls, key=lambda a: a[0].numel())
     big_ef, _ = device_ms(lambda: uplink.fused_uplink_ef(*e7))
     big_ef_bound, _ = bound_ms(ef_bytes(e7), 7 * e7[0].numel())
-    up_nbytes = sum(up_bytes(a) for a in up_calls)
-    up_bound, up_by = bound_ms(up_nbytes,
-                               sum(3 * a[0].numel() for a in up_calls))
-    up_ms, up_host = device_ms(lambda: [uplink.fused_uplink(*a)
-                                        for a in up_calls])
-    up_plain, _ = device_ms(lambda: [kref.fused_uplink(*a)
-                                     for a in up_calls])
-    lib_args = [(a[0].float(), a[1], a[2]) for a in up_calls]  # untimed
+    up_nbytes = sum(up_bytes(a) for a in up_leaves)
+    up_bound_all, up_by_all = bound_ms(up_nbytes,
+                                       sum(up_flops(a) for a in up_leaves))
+    up_live = sum(up_bytes(a, True) for a in up_leaves)
+    up_bound, up_by = bound_ms(up_live,
+                               sum(up_flops(a, True) for a in up_leaves))
+    up_ms, up_host = device_ms(lambda: uplink.fused_uplink_leaves(*up_call))
+    up_loop, up_loop_host = device_ms(lambda: [uplink.fused_uplink(*a)
+                                               for a in up_leaves])
+    up_plain, _ = device_ms(lambda: kref.fused_uplink_leaves(*up_call))
+    lib_args = [(a[0].float(), a[1], a[2]) for a in up_leaves]  # untimed
     up_lib, _ = device_ms(lambda: [torch.einsum("kr,krc->rc", w * sc, lf)
                                    for lf, sc, w in lib_args])
-    u7 = max(up_calls, key=lambda a: a[0].numel())
+    # the same call with every w non-zero: every client row is read
+    dense = (up_call[0], up_call[1],
+             [torch.rand(w.shape, generator=gen, device=dev) + 0.01
+              for w in up_call[2]])
+    check_uplink_table("setting B round's call, every w non-zero", *dense,
+                       1)
+    up_dense, _ = device_ms(lambda: uplink.fused_uplink_leaves(*dense))
+    u7 = max(up_leaves, key=lambda a: a[0].numel())
     big_up, _ = device_ms(lambda: uplink.fused_uplink(*u7))
-    big_up_bound, _ = bound_ms(up_bytes(u7), 3 * u7[0].numel())
-    del lib_args
+    big_up_bound, _ = bound_ms(up_bytes(u7, True), up_flops(u7, True))
+    if failures:
+        fail(f"kernel disagrees with its plain version: {failures}")
+    del lib_args, dense
 
     def round_ms(fn, *state):
         out = []
@@ -720,11 +918,21 @@ def main():
         f"vmap {sq_per_round_v}, scan {sq_per_round_s}")
     say(f"[times] sqdiff_rowsum, conv7.w alone {tuple(s7.shape)}: "
         f"kernel_ms={big_sq:.4f} bound_ms={big_sq_bound:.4f}")
+    say(f"[times] sqdiff_rowsum, one scan-round client's Eq. 3 "
+        f"({len(sq1_pairs)} launches, K=1): kernel_ms={sq1_ms:.4f} "
+        f"bound_ms={sq1_bound:.4f} ({sq1_by}) plain_ms={sq1_plain:.4f} "
+        f"host_enqueue_ms={sq1_host:.4f} (x{k} clients: about "
+        f"{sq1_ms * k:.4f} ms a scan round)")
     say(f"[times] masked_accumulate, one client's Eq. 5 add "
-        f"({len(ma_triples)} launches, {ma_bytes / 1e6:.2f} MB, in place): "
-        f"kernel_ms={ma_ms:.4f} bound_ms={ma_bound:.4f} ({ma_by}) "
-        f"plain_ms={ma_plain:.4f} library_ms={ma_lib:.4f} (addcmul_) "
-        f"host_enqueue_ms={ma_host:.4f}; launches per round: scan "
+        f"({len(ma_triples)} leaves in 1 launch, {ma_bytes / 1e6:.2f} MB, "
+        f"in place): kernel_ms={ma_ms:.4f} bound_ms={ma_bound:.4f} "
+        f"({ma_by}) plain_ms={ma_plain:.4f} library_ms={ma_lib:.4f} "
+        f"({len(ma_triples)} addcmul_) host_enqueue_ms={ma_host:.4f}; "
+        f"second library_ms={ma_fe:.4f} (one torch._foreach_addcmul_ call: "
+        f"{fe_kernels} kernel launches, "
+        f"{'' if fe_kernels == 1 else 'not '}one multi-tensor launch); "
+        f"the single-leaf entry a leaf: kernel_ms={ma_loop:.4f} "
+        f"host_enqueue_ms={ma_loop_host:.4f}; launches per round: scan "
         f"{ma_per_round} (x{k} clients: about {ma_ms * k:.4f} ms a round)")
     say(f"[times] masked_accumulate, conv7.w alone {tuple(m7.shape)}: "
         f"kernel_ms={big_ma:.4f} bound_ms={big_ma_bound:.4f} "
@@ -740,15 +948,20 @@ def main():
         f"{ef_per_round}")
     say(f"[times] fused_uplink_ef, conv7.w alone {tuple(e7[0].shape)}: "
         f"kernel_ms={big_ef:.4f} bound_ms={big_ef_bound:.4f}")
-    say(f"[times] fused_uplink, one setting-B round ({len(up_calls)} "
-        f"launches, K={k}, {up_nbytes / 1e6:.2f} MB): kernel_ms="
-        f"{up_ms:.4f} bound_ms={up_bound:.4f} ({up_by}) plain_ms="
-        f"{up_plain:.4f} library_ms={up_lib:.4f} (torch.einsum"
+    say(f"[times] fused_uplink, one setting-B round ({len(up_leaves)} "
+        f"leaves in 1 launch, K={k}): kernel_ms={up_ms:.4f} "
+        f"bound_ms={up_bound:.4f} ({up_by}; the rows with w != 0, "
+        f"{up_live / 1e6:.2f} MB) bound_ms_all_rows={up_bound_all:.4f} "
+        f"({up_by_all}, {up_nbytes / 1e6:.2f} MB) plain_ms={up_plain:.4f} "
+        f"library_ms={up_lib:.4f} ({len(up_leaves)} torch.einsum"
         f"(\"kr,krc->rc\", w*s, levels_f32); the int8->f32 conversion of "
-        f"the levels is not timed) host_enqueue_ms={up_host:.4f}; "
-        f"launches per round: {up_per_round}")
+        f"the levels is not timed) host_enqueue_ms={up_host:.4f}; every w "
+        f"non-zero: kernel_ms={up_dense:.4f}; the single-leaf entry a "
+        f"leaf: kernel_ms={up_loop:.4f} host_enqueue_ms={up_loop_host:.4f};"
+        f" launches per round: {up_per_round}")
     say(f"[times] fused_uplink, conv7.w alone {tuple(u7[0].shape)}: "
-        f"kernel_ms={big_up:.4f} bound_ms={big_up_bound:.4f}")
+        f"kernel_ms={big_up:.4f} bound_ms={big_up_bound:.4f} (w != 0 "
+        f"rows)")
     say(f"[times] round wall-clock (median of 3, after run_training): "
         f"vmap {rv_ms:.3f} ms, scan {rs_ms:.3f} ms, setting A {ra_ms:.3f} "
         f"ms, setting B {rb_ms:.3f} ms ({smi})")

@@ -6,7 +6,7 @@ Two execution layouts:
   client axis; aggregation is a masked weighted mean over that axis.
 - **streaming** (``scan`` client mode): clients are visited one at a time
   and added into a float32 accumulator with per-unit weights, through the
-  ``masked_accumulate`` kernel.
+  ``masked_accumulate`` kernel (one launch a client over all its leaves).
 
 Both compute Eq. 5 ``Ĝ_u = Σ_k s[k,u]·w_k·Θ_{k,u} / Σ_m s[m,u]·w_m``; with
 ``s ≡ 1`` it is FedAvg (Eq. 1). :func:`stacked_psum_finalize` is the

@@ -163,22 +163,32 @@ class UnitMap:
             out[key] = tree_map(mul, tree[key])
         return out
 
-    def accumulate(self, acc: Pytree, tree: Pytree,
-                   per_unit: torch.Tensor) -> Pytree:
-        """``acc += per_unit[u(leaf)] * tree`` — the Eq. 5 inner accumulation,
-        one :func:`repro_torch.kernels.ops.masked_accumulate` call per leaf
-        (the CUDA kernel for CUDA tensors).
+    def accumulate(self, acc: Pytree, tree: Pytree, per_unit: torch.Tensor,
+                   masked_accumulate: Callable | None = None) -> Pytree:
+        """``acc += per_unit[u(leaf)] * tree`` — the Eq. 5 inner accumulation.
+
+        By default one :func:`repro_torch.kernels.ops.
+        masked_accumulate_leaves` call covers every leaf (one CUDA kernel
+        launch for CUDA tensors). ``masked_accumulate(acc2d, x2d, w_rows) ->
+        acc2d`` is instead called once a leaf, as in the reference.
 
         Writes **in place** into ``acc``'s f32 leaves (the caller owns the
         accumulator) and returns ``acc``.
         """
         from repro_torch.kernels import ops as kops
+        accs, xs, ws = [], [], []
         for key in tree:
             off, n = self.spans[key]
             w = per_unit[off:off + n]
             for a, x in zip(tree_leaves(acc[key]), tree_leaves(tree[key])):
-                a2 = a.view(n, -1)
-                kops.masked_accumulate(a2, x.reshape(n, -1), w, out=a2)
+                accs.append(a.view(n, -1))
+                xs.append(x.reshape(n, -1))
+                ws.append(w)
+        if masked_accumulate is None:
+            kops.masked_accumulate_leaves(accs, xs, ws)
+        else:
+            for a2, x2, w in zip(accs, xs, ws):
+                a2.copy_(masked_accumulate(a2, x2, w))
         return acc
 
     def expand_to_leaves(self, tree: Pytree,

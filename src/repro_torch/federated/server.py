@@ -11,8 +11,8 @@ Two per-round execution modes give the same aggregation semantics:
   vectors *before* deciding what to aggregate, so the round runs two
   passes of deterministic local training (phase 1: divergence only;
   phase 2: recompute and stream the selected layers into an f32
-  accumulator through the ``masked_accumulate`` kernel). Memory is
-  O(1) clients.
+  accumulator through the ``masked_accumulate`` kernel, one launch a
+  client over all its leaves). Memory is O(1) clients.
 
 ``FLConfig(compression=CompressionConfig(...))`` quantizes every uploaded
 layer into int8 or int4 levels plus a per-unit scale, with optional
@@ -160,7 +160,8 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
         if strategy.packed_upload:
             # packed wire-format uplink: the strategy quantizes the client
             # deltas into PackedPayload buffers and reduces them through
-            # the fused uplink kernels, one launch per leaf
+            # the fused uplink kernels: one launch a round over every
+            # leaf, or one a leaf with error feedback
             new_params, new_rows, wire = strategy.uplink_round(
                 locals_, params, umap, selection, divs, data_sizes,
                 res_rows)

@@ -16,10 +16,12 @@ Two execution paths, chosen by ``CompressionConfig.fused``:
   per-unit scales and a per-unit bit-width vector (constant, or
   waterfilled from the round's Eq. 3 divergence stats when
   ``bits="auto"``) — and dequantization, the EF residual update and the
-  Eq. 5 numerator run in one pass per leaf through the fused uplink
-  kernels (:mod:`repro_torch.kernels.uplink`), which never build per-client
-  f32 reconstructions. Comm accounting prices the payload's wire bytes
-  (``PackedPayload.unit_wire_bytes``) through ``unit_bytes_override``.
+  Eq. 5 numerator run through the fused uplink kernels
+  (:mod:`repro_torch.kernels.uplink`: one launch a round over every leaf
+  without error feedback, one a leaf with it), which never build
+  per-client f32 reconstructions. Comm accounting prices the payload's
+  wire bytes (``PackedPayload.unit_wire_bytes``) through
+  ``unit_bytes_override``.
 - **legacy** (``fused=False``): the unfused chain — ``transform_upload``
   rebuilds f32 ``Θ̂`` per client, ``update_residual`` gates the EF rows,
   the inner strategy aggregates — the A/B reference the packed path is
@@ -116,21 +118,23 @@ class QuantizedUpload(FLStrategy):
     # ==================================================================
     def _packed_reduce(self, locals_, global_params, umap, sel_rows, divs,
                        data_sizes, res_rows, *,
-                       fused_uplink: Optional[Callable] = None,
+                       fused_uplink_leaves: Optional[Callable] = None,
                        fused_uplink_ef: Optional[Callable] = None):
         """Stacked locals → packed payload → fused kernel reduction.
 
         Returns ``(num_parts, denom, new_res_rows, wire)``: ``num_parts``
         is the param-structured additive Eq. 5 numerator ``Σ_k w[k,u]·Θ̂_k
         = denom_u·Ĝ + Σ_k w·scale·levels`` (the second term through the
-        fused uplink kernel, one launch per leaf), ``denom`` the ``(U,)``
-        weight sums, and ``wire`` the payload's accounting plus the
-        payload itself (``"payload"``). ``fused_uplink`` and
+        fused uplink kernels: without error feedback one
+        ``fused_uplink_leaves`` call over every leaf, one launch a round;
+        with it one ``fused_uplink_ef`` launch a leaf), ``denom`` the
+        ``(U,)`` weight sums, and ``wire`` the payload's accounting plus the
+        payload itself (``"payload"``). ``fused_uplink_leaves`` and
         ``fused_uplink_ef`` default to :mod:`repro_torch.kernels.ops`'s
         (the CUDA kernels for CUDA tensors); passing the plain versions
         runs the same round without the kernels.
         """
-        uplink = fused_uplink or kops.fused_uplink
+        uplink_leaves = fused_uplink_leaves or kops.fused_uplink_leaves
         uplink_ef = fused_uplink_ef or kops.fused_uplink_ef
         comp = self.comp
         k = sel_rows.shape[0]
@@ -155,32 +159,47 @@ class QuantizedUpload(FLStrategy):
             bits, storage_bits=comp.storage_bits)
         levels_k = wire_mod.unpack_levels(payload, v_k)
 
+        def finish(num2, g_leaf, d_seg, n):
+            # Σ_k w·Θ̂ = denom·Ĝ + Σ_k w·recon (the kernel term)
+            num2 = num2 + d_seg[:, None] * g_leaf.float().reshape(n, -1)
+            return num2.reshape(g_leaf.shape)
+
         num_parts, res_parts = {}, ({} if ef else None)
-        for key, (off, n) in umap.spans.items():
-            w_seg = w[:, off:off + n].contiguous()
-            s_seg = scales_k[:, off:off + n].contiguous()
-            g_seg = sel_rows[:, off:off + n].contiguous()
-            d_seg = denom[off:off + n]
+        if not ef:
+            # every leaf of the round through one grouped call: (K, n, C)
+            # levels, each unit one row, and the (K, n) scales and weights
+            calls = []
+            for key, (off, n) in umap.spans.items():
+                s_seg = scales_k[:, off:off + n].contiguous()
+                w_seg = w[:, off:off + n].contiguous()
+                tree_map(lambda lv, n=n, s_seg=s_seg, w_seg=w_seg:
+                         calls.append((lv.reshape(k, n, -1), s_seg, w_seg)),
+                         levels_k[key])
+            nums = iter(uplink_leaves(*(list(c) for c in zip(*calls))))
+            for key, (off, n) in umap.spans.items():
+                d_seg = denom[off:off + n]
+                num_parts[key] = tree_map(
+                    lambda lv, g_leaf, d_seg=d_seg, n=n:
+                    finish(next(nums), g_leaf, d_seg, n),
+                    levels_k[key], global_params[key])
+        else:
+            for key, (off, n) in umap.spans.items():
+                w_seg = w[:, off:off + n].contiguous()
+                s_seg = scales_k[:, off:off + n].contiguous()
+                g_seg = sel_rows[:, off:off + n].contiguous()
+                d_seg = denom[off:off + n]
 
-            def reduce_leaf(lv, vv, g_leaf, ee=None):
-                # (K, n, ...) stacked or (K, ...): each unit is one row
-                lv2 = lv.reshape(k, n, -1)
-                v2 = vv.reshape(k, n, -1)
-                if ee is not None:
-                    num2, res2 = uplink_ef(lv2, s_seg, w_seg, g_seg, v2,
+                def reduce_leaf(lv, vv, g_leaf, ee):
+                    # (K, n, ...) stacked or (K, ...): each unit is one row
+                    num2, res2 = uplink_ef(lv.reshape(k, n, -1), s_seg, w_seg,
+                                           g_seg, vv.reshape(k, n, -1),
                                            ee.reshape(k, n, -1))
-                    res = res2.reshape((k,) + g_leaf.shape)
-                else:
-                    num2, res = uplink(lv2, s_seg, w_seg), None
-                # Σ_k w·Θ̂ = denom·Ĝ + Σ_k w·recon (the kernel term)
-                num2 = num2 + d_seg[:, None] * g_leaf.float().reshape(n, -1)
-                return num2.reshape(g_leaf.shape), res
+                    return (finish(num2, g_leaf, d_seg, n),
+                            res2.reshape((k,) + g_leaf.shape))
 
-            args = (levels_k[key], v_k[key], global_params[key])
-            out = tree_map(reduce_leaf, *args, *((res_rows[key],) if ef
-                                                  else ()))
-            num_parts[key] = _split(out, 0)
-            if ef:
+                out = tree_map(reduce_leaf, levels_k[key], v_k[key],
+                               global_params[key], res_rows[key])
+                num_parts[key] = _split(out, 0)
                 res_parts[key] = _split(out, 1)
 
         wire = {"unit_bytes": payload.unit_wire_bytes(umap), "bits": bits,
@@ -189,11 +208,11 @@ class QuantizedUpload(FLStrategy):
 
     def uplink_round(self, locals_, global_params, umap, selection, divs,
                      data_sizes, res_rows, *,
-                     fused_uplink: Optional[Callable] = None,
+                     fused_uplink_leaves: Optional[Callable] = None,
                      fused_uplink_ef: Optional[Callable] = None):
         parts, denom, new_rows, wire = self._packed_reduce(
             locals_, global_params, umap, selection, divs, data_sizes,
-            res_rows, fused_uplink=fused_uplink,
+            res_rows, fused_uplink_leaves=fused_uplink_leaves,
             fused_uplink_ef=fused_uplink_ef)
         new_params = self.psum_finalize(parts, denom, umap, global_params,
                                         global_params)

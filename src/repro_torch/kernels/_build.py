@@ -3,7 +3,8 @@
 Every ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``build/repro_torch_kernels/`` at the
 root of the checkout (listed in ``.gitignore``), under a file name that
-carries a hash of the source, so an edited source is rebuilt and an
+carries a hash of the source and of the headers it includes
+(``csrc/leaf_table.cuh``), so an edited source or header is rebuilt and an
 unchanged one is reused. Nothing is compiled or loaded when a module is
 imported: this module only reaches ``nvcc`` when a CUDA tensor reaches a
 kernel wrapper (or :func:`build` is called).
@@ -17,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,6 +31,8 @@ BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -46,10 +50,25 @@ def _nvcc() -> str:
         "CUDA kernels are compiled at first use")
 
 
+def _sources(path: Path, seen: tuple = ()) -> list[Path]:
+    """``path`` and every ``#include "..."`` file it reaches (quoted
+    includes resolve beside the including file, as ``nvcc`` does)."""
+    out, seen = [path], seen + (path,)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep not in seen:
+            out += _sources(dep, seen)
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library file of ``csrc/<name>.cu``: its name carries a hash of
+    the source, of every header it includes and of the flags."""
+    digest = hashlib.sha1()
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

@@ -1,5 +1,6 @@
-// Per-row scaled accumulate for Hopper (sm_90a): the Eq. 5 streaming
-// accumulation of FedLDF's sequential-client (scan) round,
+// Per-row scaled accumulate for Hopper (sm_90a) over a table of leaves:
+// the Eq. 5 streaming accumulation of FedLDF's sequential-client (scan)
+// round, for every leaf of one client in one launch,
 //     out[r, c] = acc[r, c] + w[r] * x[r, c]          (f32 result).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/aggregate.py
@@ -7,106 +8,102 @@
 //
 // What bounds it: bytes. Per element it reads acc (4 B) and x (4 or 2 B)
 // and writes out (4 B) for one multiply and one add, far below the card's
-// ratio of operations to bytes.
+// ratio of operations to bytes. But a model's leaves are mostly tiny
+// (VGG-9: 25 of 34 hold 512 elements or fewer), so one launch a leaf is
+// bound by launches, ramps and tails instead: a client's add took 7x its
+// byte bound that way.
 //
 // What the design does about that:
-// - One elementwise pass: rows on the grid's y axis, a grid-stride loop
-//   over each row's columns on x, so w[row] is one load per row and no
-//   thread divides to find its row. Each thread moves 4 consecutive
-//   elements with one 16-byte load of acc, one 16- (f32) or 8-byte (bf16)
-//   load of x and one 16-byte store when the row length is a multiple of
-//   4 and the pointers are aligned (the caller decides); scalar otherwise.
+// - One launch covers every leaf of a client (leaf_table.cuh): the grid is
+//   the table's total work, a block of kThreads threads covers
+//   kThreads * width consecutive elements of one leaf, and a block finds
+//   its leaf by a search over the table's block prefix sums.
+// - A thread moves `width` consecutive elements (16 or 4 when the leaf
+//   allows it, 1 otherwise) in 16-byte loads and stores (8-byte x loads
+//   for 4 bf16), all loads issued before the arithmetic. Its row's weight
+//   is one load (w[0] for a one-row leaf, no division).
 // - `out` may be `acc` itself (an in-place accumulate, as the private
 //   Eq. 5 accumulator of a round uses it): every element is read before it
 //   is written by the same thread, so acc and out carry no __restrict__.
 // - The product and the sum are rounded separately (__fmul_rn, __fadd_rn:
 //   no fused multiply-add), so the kernel gives the same bits as the plain
 //   PyTorch version acc + w[:, None] * x.
-// - No padded copies: the TPU kernel padded to (8, 2048) blocks; here the
-//   ragged end is just the end of the grid-stride loop.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// - No padded copies: the TPU kernel padded to (8, 2048) blocks; here a
+//   thread past a leaf's end does nothing.
+#include "leaf_table.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;
-constexpr long long kMaxGridY = 65535;
+using leaf_table::kThreads;
+using leaf_table::Table;
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// Table pointers: 0 acc (f32), 1 x (dtype 0 = f32, 1 = bf16), 2 w (f32,
+// one a row), 3 out (f32). Element sizes a dtype, for the alignment check.
+constexpr int kEsize[2][4] = {{4, 4, 0, 4}, {4, 2, 0, 4}};
 
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-// Block (bx, by) walks row by (and every gridDim.y-th row after it) with a
-// column grid-stride over groups of N elements; w[row] is loaded once.
 template <typename TX, int N>
-__global__ void __launch_bounds__(kThreads)
-    masked_accumulate(const float* acc, const TX* __restrict__ x,
-                      const float* __restrict__ w, float* out, long long rows,
-                      long long cols) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads * N;
-  for (long long row = blockIdx.y; row < rows; row += gridDim.y) {
-    const float wr = w[row];
-    const long long base = row * cols;
-    for (long long c = (static_cast<long long>(blockIdx.x) * kThreads +
-                        threadIdx.x) * N;
-         c < cols; c += stride) {
-      const long long i = base + c;
-      const Vec<float, N> va =
-          *reinterpret_cast<const Vec<float, N>*>(acc + i);
-      const Vec<TX, N> vx = *reinterpret_cast<const Vec<TX, N>*>(x + i);
-      Vec<float, N> vo;
+__device__ __forceinline__ void accumulate(const Table& t, int leaf,
+                                           long long e) {
+  const long long rows = t.rows[leaf], cols = t.cols[leaf];
+  if (e >= rows * cols) return;
+  const float* acc = static_cast<const float*>(t.ptr[0][leaf]);
+  const TX* x = static_cast<const TX*>(t.ptr[1][leaf]);
+  const float* w = static_cast<const float*>(t.ptr[2][leaf]);
+  float* out = static_cast<float*>(const_cast<void*>(t.ptr[3][leaf]));
+  float a[N];
+  TX xv[N];
+  leaf_table::load_n<float, N>(acc + e, a);
+  leaf_table::load_n<TX, N>(x + e, xv);
+  const float wr = w[rows == 1 ? 0 : e / cols];
+  float o[N];
 #pragma unroll
-      for (int j = 0; j < N; ++j)
-        vo.v[j] = __fadd_rn(va.v[j], __fmul_rn(wr, widen(vx.v[j])));
-      *reinterpret_cast<Vec<float, N>*>(out + i) = vo;
-    }
-  }
+  for (int j = 0; j < N; ++j)
+    o[j] = __fadd_rn(a[j], __fmul_rn(wr, leaf_table::widen(xv[j])));
+  leaf_table::store_n<float, N>(out + e, o);
 }
 
-template <typename TX, int N>
-void launch(const float* acc, const void* x, const float* w, float* out,
-            long long rows, long long cols, cudaStream_t stream) {
-  long long bx = (cols / N + kThreads - 1) / kThreads;
-  long long by = rows < kMaxGridY ? rows : kMaxGridY;
-  if (bx * by > kMaxBlocks) bx = (kMaxBlocks + by - 1) / by;
-  const dim3 grid(static_cast<unsigned>(bx), static_cast<unsigned>(by));
-  masked_accumulate<TX, N><<<grid, kThreads, 0, stream>>>(
-      acc, static_cast<const TX*>(x), w, out, rows, cols);
+template <typename TX>
+__device__ __forceinline__ void accumulate_width(const Table& t, int leaf,
+                                                 int width, long long e) {
+  if (width == 16)
+    accumulate<TX, 16>(t, leaf, e);
+  else if (width == 4)
+    accumulate<TX, 4>(t, leaf, e);
+  else
+    accumulate<TX, 1>(t, leaf, e);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    masked_accumulate_leaves(const __grid_constant__ Table t) {
+  const int leaf = leaf_table::find_leaf(t, blockIdx.x);
+  const int width = t.width[leaf];
+  const long long e =
+      (static_cast<long long>(blockIdx.x - t.start[leaf]) * kThreads +
+       threadIdx.x) * width;
+  if (t.dtype[leaf] == 0)
+    accumulate_width<float>(t, leaf, width, e);
+  else
+    accumulate_width<__nv_bfloat16>(t, leaf, width, e);
 }
 
 }  // namespace
 
 extern "C" {
 
-// acc, out: (rows, cols) f32; x: (rows, cols), dtype 0 = f32, 1 = bf16;
-// w: (rows,) f32; all contiguous; out may equal acc. vec != 0 selects the
-// 4-wide path (cols % 4 == 0, acc/out 16-byte and x 16- or 8-byte
-// aligned). Returns cudaGetLastError().
-int repro_masked_accumulate(const float* acc, const void* x, const float* w,
-                            float* out, long long rows, long long cols,
-                            int x_dtype, int vec, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (rows < 1 || cols < 1 || (x_dtype != 0 && x_dtype != 1) ||
-      (vec && cols % 4))
+// One launch over n <= 48 leaves. desc: n rows of 8 int64, (acc, x, w,
+// out, rows, cols, x_dtype, width) with acc, out (rows, cols) f32, x (rows,
+// cols) f32 (x_dtype 0) or bf16 (1), w (rows,) f32, all contiguous, out
+// possibly acc; width 16, 4 or 1 elements a thread (cols a multiple of it,
+// acc, out and x aligned to min(16, width * element size) bytes). starts:
+// the n + 1 exclusive prefix sums of leaf_blocks(rows, cols, width, flat).
+// Returns cudaGetLastError().
+int repro_masked_accumulate_leaves(const long long* desc, const int* starts,
+                                   int n, void* stream_ptr) {
+  Table t;
+  if (!leaf_table::fill(&t, desc, starts, n, false, kEsize, 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (x_dtype == 0) {
-    if (vec)
-      launch<float, 4>(acc, x, w, out, rows, cols, stream);
-    else
-      launch<float, 1>(acc, x, w, out, rows, cols, stream);
-  } else {
-    if (vec)
-      launch<__nv_bfloat16, 4>(acc, x, w, out, rows, cols, stream);
-    else
-      launch<__nv_bfloat16, 1>(acc, x, w, out, rows, cols, stream);
-  }
+  masked_accumulate_leaves<<<t.start[n], kThreads, 0,
+                             static_cast<cudaStream_t>(stream_ptr)>>>(t);
   return static_cast<int>(cudaGetLastError());
 }
 

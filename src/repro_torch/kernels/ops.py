@@ -39,6 +39,16 @@ def masked_accumulate(acc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return _ref.masked_accumulate(acc, x, w, out)
 
 
+def masked_accumulate_leaves(accs: list[torch.Tensor],
+                             xs: list[torch.Tensor],
+                             ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """:func:`masked_accumulate` in place over every (acc, x, w) leaf: one
+    kernel launch for them all on CUDA. Returns ``accs``."""
+    if accs and accs[0].device.type == "cuda":
+        return _aggregate.masked_accumulate_leaves(accs, xs, ws)
+    return _ref.masked_accumulate_leaves(accs, xs, ws)
+
+
 def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
     """(K, R, C) int8, (K, R), (K, R) -> (R, C) float32
@@ -46,6 +56,16 @@ def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
     if levels.device.type == "cuda":
         return _uplink.fused_uplink(levels, scales, w)
     return _ref.fused_uplink(levels, scales, w)
+
+
+def fused_uplink_leaves(levels: list[torch.Tensor],
+                        scales: list[torch.Tensor],
+                        ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """:func:`fused_uplink` of every (levels, scales, w) leaf: one kernel
+    launch for them all on CUDA."""
+    if levels and levels[0].device.type == "cuda":
+        return _uplink.fused_uplink_leaves(levels, scales, ws)
+    return _ref.fused_uplink_leaves(levels, scales, ws)
 
 
 def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,

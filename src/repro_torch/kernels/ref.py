@@ -49,6 +49,16 @@ def masked_accumulate(acc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return torch.add(acc, w.float()[:, None] * x.float(), out=out)
 
 
+def masked_accumulate_leaves(accs: list[torch.Tensor],
+                             xs: list[torch.Tensor],
+                             ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """:func:`masked_accumulate` in place over every (acc, x, w) leaf, as
+    the CUDA kernel does in one launch. Returns ``accs``."""
+    for acc, x, w in zip(accs, xs, ws, strict=True):
+        masked_accumulate(acc, x, w, out=acc)
+    return accs
+
+
 def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
     """``Σ_k w[k,r]·scales[k,r]·levels[k,r,:]``: dequantization and the
@@ -65,6 +75,15 @@ def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
         recon = levels[k].float() * scales[k].float()[:, None]
         num = num + w[k].float()[:, None] * recon
     return num
+
+
+def fused_uplink_leaves(levels: list[torch.Tensor],
+                        scales: list[torch.Tensor],
+                        ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """:func:`fused_uplink` of every (levels, scales, w) leaf, as the CUDA
+    kernel does in one launch."""
+    return [fused_uplink(lv, s, w)
+            for lv, s, w in zip(levels, scales, ws, strict=True)]
 
 
 def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,

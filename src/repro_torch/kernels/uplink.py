@@ -1,12 +1,16 @@
 """CUDA kernel launchers: the fused packed-uplink reduction, dequantization
-plus the Eq. 5 numerator, with or without the error-feedback residual.
+plus the Eq. 5 numerator, over a table of leaves, and with the
+error-feedback residual, one leaf a launch.
 
 Replaces the Pallas TPU kernels ``src/repro/kernels/uplink.py``
 (``fused_uplink`` / ``_uplink_kernel`` and ``fused_uplink_ef`` /
-``_uplink_ef_kernel``). The kernels are ``csrc/uplink.cu``; its header says
-what bounds them on the card (bytes) and what the design does about that.
-The plain PyTorch versions are :func:`repro_torch.kernels.ref.fused_uplink`
-and :func:`~repro_torch.kernels.ref.fused_uplink_ef`;
+``_uplink_ef_kernel``). The kernels are ``csrc/uplink.cu``; its header
+says what bounds them on the card (bytes, and launches and latency when a
+model's leaves are small) and what the one launch over a table of leaves
+(``csrc/leaf_table.cuh``) does about that. :func:`fused_uplink_leaves`
+covers every leaf of a round in one launch; :func:`fused_uplink`, the TPU
+kernel's signature, is the same kernel over a one-entry table. The plain
+PyTorch versions are in :mod:`repro_torch.kernels.ref`;
 :mod:`repro_torch.kernels.ops` picks by the tensor's device.
 """
 from __future__ import annotations
@@ -15,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _leaves
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = {torch.int8: 4, torch.float32: 16, torch.bfloat16: 8}  # 4 elements
@@ -25,7 +29,7 @@ _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     return _build.load(
         "uplink",
-        repro_fused_uplink=[_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P],
+        repro_fused_uplink_leaves=_leaves.signature(_I64),
         repro_fused_uplink_ef=[_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                _I64, _I32, _I32, _I32, _P])
 
@@ -65,27 +69,62 @@ def _check(name: str, levels: torch.Tensor, rowvecs: tuple, mats: tuple,
     return kk, rows, cols, vec
 
 
+def fused_uplink_leaves(levels: list[torch.Tensor],
+                        scales: list[torch.Tensor],
+                        ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Launch the kernel once over every leaf (once a chunk of
+    ``_leaves.MAX_LEAVES``): ``num[i] = Σ_k ws[i][k,r]·scales[i][k,r]·
+    levels[i][k,r,:]``.
+
+    Each entry as :func:`fused_uplink` takes it, all on one CUDA device
+    and with one K. Returns the (R, C) f32 ``num`` of each leaf. Raises on
+    anything else, and on a refused launch.
+    """
+    if not len(levels) == len(scales) == len(ws) or not levels:
+        raise ValueError(f"fused_uplink_leaves needs equal, non-empty lists;"
+                         f" got {len(levels)}, {len(scales)}, {len(ws)}")
+    device = levels[0].device
+    index = device.index if levels[0].is_cuda else None
+    kk = levels[0].shape[0] if levels[0].dim() == 3 else 0
+    nums, desc, blocks = [], [], []
+    for lv, s, w in zip(levels, scales, ws):
+        # one chain of cheap attribute tests a leaf; a leaf that fails
+        # gets its error from _check, or is on another device or K
+        shape = lv.shape
+        if not (lv.get_device() == index and s.get_device() == index
+                and w.get_device() == index and lv.dtype is torch.int8
+                and s.dtype is torch.float32 and w.dtype is torch.float32
+                and len(shape) == 3 and shape[0] == kk
+                and s.shape == shape[:2] and w.shape == shape[:2]
+                and lv.is_contiguous() and s.is_contiguous()
+                and w.is_contiguous() and lv.numel()):
+            _check("fused_uplink", lv, (s, w), (), ())
+            raise ValueError(f"fused_uplink_leaves needs one device and one "
+                             f"K; got {lv.device}, K={shape[0]} after "
+                             f"{device}, K={kk}")
+        _, rows, cols = shape
+        num = torch.empty((rows, cols), dtype=torch.float32, device=device)
+        pl, pn = lv.data_ptr(), num.data_ptr()
+        width = _leaves.vector_width(cols, ((pl, 1), (pn, 4)))
+        desc += (pl, s.data_ptr(), w.data_ptr(), pn, rows, cols, 0, width)
+        blocks.append(_leaves.leaf_blocks(rows, cols, width, per_row=True))
+        nums.append(num)
+    lib = _lib()
+    _leaves.launch("fused_uplink", lib, lib.repro_fused_uplink_leaves, desc,
+                   blocks, device, kk)
+    return nums
+
+
 def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: ``num = Σ_k w[k,r]·scales[k,r]·levels[k,r,:]``.
+    """Launch the kernel over a one-entry table: ``num = Σ_k
+    w[k,r]·scales[k,r]·levels[k,r,:]``.
 
     levels: (K, R, C) int8; scales, w: (K, R) f32; all contiguous CUDA
     tensors on one device. Returns num (R, C) f32. Raises on anything
     else, and on a refused launch.
     """
-    num = torch.empty(levels.shape[1:], dtype=torch.float32,
-                      device=levels.device)
-    kk, rows, cols, vec = _check("fused_uplink", levels, (scales, w), (),
-                                 (num,))
-    lib = _lib()
-    with torch.cuda.device(levels.device):
-        code = lib.repro_fused_uplink(
-            levels.data_ptr(), scales.data_ptr(), w.data_ptr(),
-            num.data_ptr(), kk, rows, cols, int(vec),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "fused_uplink")
-    _build.LAUNCHES["fused_uplink"] += 1
-    return num
+    return fused_uplink_leaves([levels], [scales], [w])[0]
 
 
 def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,

@@ -183,6 +183,152 @@ def test_cuda_uplink_kernels_reject_bad_inputs(cuda):
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
+# The leaf-table kernels: one launch over a list of leaves. VGG-9's 34
+# full-width leaves as the round sees them (one row a leaf), and the
+# reference SHAPES that exercise the ragged, scalar and multi-row paths.
+TABLE_SHAPES = [(1, 1), (9, 2049), (62, 33)]
+
+
+def _vgg9_shapes():
+    params = cnn.init_params(cnn.VGGConfig(), torch.Generator().manual_seed(0),
+                             "cpu")
+    return [(1, leaf.numel()) for leaf in tree_leaves(params)]
+
+
+def _macc_table(device, shapes, dtype, seed):
+    """(acc, x, w) a leaf; every third leaf's weights are 0."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    accs, xs, ws = [], [], []
+    for i, shape in enumerate(shapes):
+        accs.append(torch.randn(shape, generator=g, device=device))
+        xs.append(torch.randn(shape, generator=g, device=device,
+                              dtype=DTYPES[dtype]))
+        w = torch.randn(shape[:1], generator=g, device=device)
+        ws.append(w * 0 if i % 3 == 0 else w)
+    return accs, xs, ws
+
+
+def _check_macc_table(accs, xs, ws, launches):
+    want = [ref.masked_accumulate(a, x, w) for a, x, w in zip(accs, xs, ws)]
+    got = ops.masked_accumulate_leaves(accs, xs, ws)
+    assert all(g is a for g, a in zip(got, accs))           # in place
+    assert all(torch.equal(a, b) for a, b in zip(accs, want))
+    assert ops.launch_counts()["masked_accumulate"] == launches
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_masked_accumulate_leaves_vgg9_table(cuda, dtype):
+    """Every leaf of full-width VGG-9 in one launch, in place, bit for bit;
+    fc.b (10 columns) takes the scalar path inside the same launch."""
+    _check_macc_table(*_macc_table(cuda, _vgg9_shapes(), dtype, 1), 1)
+
+
+@pytest.mark.parametrize("table", ["one-entry", "mixed"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_masked_accumulate_leaves_reference_shapes(cuda, table, dtype):
+    if table == "one-entry":
+        for i, shape in enumerate(TABLE_SHAPES):
+            _check_macc_table(*_macc_table(cuda, [shape], dtype, i), i + 1)
+    else:
+        shapes = TABLE_SHAPES + [(1, 4096), (4, 1000), (1, 10)]
+        accs, xs, ws = _macc_table(cuda, shapes, dtype, 7)
+        # a misaligned view among aligned leaves
+        accs[3] = torch.randn(4097, device=cuda)[1:].view(1, 4096)
+        _check_macc_table(accs, xs, ws, 1)
+
+
+def test_cuda_masked_accumulate_leaves_chunks_a_long_table(cuda):
+    """A table longer than one launch holds goes in chunks of 48 leaves."""
+    shapes = [(1 + i % 3, 16 * (1 + i % 5)) for i in range(100)]
+    _check_macc_table(*_macc_table(cuda, shapes, "f32", 3), 3)
+
+
+def _uplink_table(device, shapes, k, seed, dense=False):
+    """(levels, scales, w) a leaf of K clients; unless ``dense``, 4 of
+    every 5 clients have w = 0, as fedldf's n = 4 of K = 20."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    levels, scales, ws = [], [], []
+    for r, c in shapes:
+        levels.append(torch.randint(-127, 128, (k, r, c), generator=g,
+                                    device=device, dtype=torch.int8))
+        scales.append(torch.rand((k, r), generator=g, device=device) + 1e-4)
+        w = torch.rand((k, r), generator=g, device=device)
+        if not dense:
+            w[torch.arange(k, device=device) % 5 != 0] = 0.0
+        ws.append(w)
+    return levels, scales, ws
+
+
+def _check_uplink_table(levels, scales, ws, launches):
+    want = [ref.fused_uplink(*a) for a in zip(levels, scales, ws)]
+    got = ops.fused_uplink_leaves(levels, scales, ws)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan)
+        assert torch.equal(a[~nan], b[~nan])
+    assert ops.launch_counts()["fused_uplink"] == launches
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse-w", "dense-w"])
+def test_cuda_fused_uplink_leaves_vgg9_table(cuda, dense):
+    """One setting-B round's 34 leaves at K = 20 in one launch, bit for
+    bit, with fedldf's w = 0 rows and with every w non-zero."""
+    _check_uplink_table(*_uplink_table(cuda, _vgg9_shapes(), 20, 2, dense),
+                        1)
+
+
+@pytest.mark.parametrize("table", ["one-entry", "mixed"])
+def test_cuda_fused_uplink_leaves_reference_shapes(cuda, table):
+    if table == "one-entry":
+        for i, shape in enumerate(TABLE_SHAPES):
+            _check_uplink_table(*_uplink_table(cuda, [shape], 5, i), i + 1)
+    else:
+        shapes = TABLE_SHAPES + [(1, 4096), (3, 1000), (1, 10)]
+        levels, scales, ws = _uplink_table(cuda, shapes, 5, 9)
+        # a view at a 1-byte offset among aligned leaves
+        levels[3] = torch.randint(-127, 128, (5 * 4096 + 1,), device=cuda,
+                                  dtype=torch.int8)[1:].view(5, 1, 4096)
+        _check_uplink_table(levels, scales, ws, 1)
+
+
+def test_cuda_fused_uplink_leaves_skip_keeps_nan(cuda):
+    """A w = 0 row is skipped only where its term is exactly ±0: with an
+    inf, NaN or huge finite scale it is not, and gives the plain NaN."""
+    levels, scales, ws = _uplink_table(cuda, [(1, 4096), (2, 10)] * 3, 5, 4)
+    for i, bad in enumerate((float("inf"), float("nan"), 3e38)):
+        ws[2 * i][1, 0] = 0.0
+        scales[2 * i][1, 0] = bad
+        ws[2 * i + 1][1, 1] = 0.0
+        scales[2 * i + 1][1, 1] = bad
+    _check_uplink_table(levels, scales, ws, 1)
+    # inf and NaN scales: every column of those leaves is NaN
+    assert all(bool(torch.isnan(n).all())
+               for n in ops.fused_uplink_leaves(levels, scales, ws)[0:4:2])
+
+
+def test_cuda_fused_uplink_leaves_chunks_a_long_table(cuda):
+    shapes = [(1 + i % 2, 16 * (1 + i % 7)) for i in range(100)]
+    _check_uplink_table(*_uplink_table(cuda, shapes, 3, 5), 3)
+
+
+def test_cuda_leaf_tables_reject_bad_inputs(cuda):
+    a = torch.ones(4, 16, device=cuda)
+    w = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):
+        tka.masked_accumulate_leaves([a, a], [a], [w, w])
+    with pytest.raises(ValueError):
+        tka.masked_accumulate_leaves([a, a], [a, a.cpu()], [w, w])
+    with pytest.raises(TypeError):
+        tka.masked_accumulate_leaves([a, a], [a, a.half()], [w, w])
+    levels, scales, ws = _uplink_table(cuda, [(1, 64), (1, 64)], 3, 0)
+    with pytest.raises(ValueError):                  # two K in one table
+        tku.fused_uplink_leaves([levels[0], levels[1][:2].contiguous()],
+                                [scales[0], scales[1][:2].contiguous()],
+                                [ws[0], ws[1][:2].contiguous()])
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
 @pytest.mark.parametrize("bits,ef", [(8, True), (4, False)])
 def test_cuda_compressed_round_matches_cpu_round(cuda, bits, ef):
     """One compressed fedldf round through the uplink kernels on the card
@@ -214,8 +360,11 @@ def test_cuda_compressed_round_matches_cpu_round(cuda, bits, ef):
             torch.testing.assert_close(a.cpu(), c, rtol=0,
                                        atol=EQUIV_TOL + float(step[off]))
     counts = ops.launch_counts()
-    name = "fused_uplink_ef" if ef else "fused_uplink"
-    assert counts[name] == len(tree_leaves(params))
+    # error feedback: a launch a leaf; without: one over the leaf table
+    if ef:
+        assert counts["fused_uplink_ef"] == len(tree_leaves(params))
+    else:
+        assert counts["fused_uplink"] == 1
     assert counts["sqdiff_rowsum"] == len(tree_leaves(params))
 
 
@@ -260,9 +409,8 @@ def test_cuda_run_training_launches_kernels(cuda):
     assert all(l.is_cuda and bool(torch.isfinite(l).all())
                for l in tree_leaves(out))
     assert len(log.losses) == 2 and np.isfinite(log.losses).all()
-    # scan mode: one launch per leaf, client and round
-    assert ops.launch_counts()["masked_accumulate"] == \
-        2 * 5 * len(tree_leaves(params))
+    # scan mode: one launch over the leaf table a client and round
+    assert ops.launch_counts()["masked_accumulate"] == 2 * 5
 
 
 # tests/test_flash_kernel.py CASES: (bh, bkv, sq, skv, hd, causal, window)
