@@ -10,36 +10,44 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
 3. kernels vs their plain PyTorch versions on the card, over the reference
    test sweeps (``tests/test_kernels.py`` SHAPES, f32 and bf16, at
    rtol=3e-3, atol=1e-5; ``tests/test_wire.py``'s uplink shapes, f32 and
-   bf16 v/e_old, at rtol=3e-5, atol=1e-5; ``masked_accumulate`` and
-   ``fused_uplink`` bit for bit) and the main path's shapes; the two
-   leaf-table kernels, which cover a list of leaves in one launch, bit for
-   bit over VGG-9's 34 full-width leaves (f32 and bf16 x, in place, rows
-   with w = 0; the uplink at K = 20 with fedldf's w = 0 rows and with
-   every w non-zero), SHAPES (1, 1), (9, 2049), (62, 33) as one-entry and
-   mixed tables (a scalar leaf, a misaligned view), 100 leaves in 3
-   launches, and w = 0 uplink rows whose inf, NaN or huge scale must give
-   the plain NaN;
+   bf16 v/e_old; ``masked_accumulate``, ``fused_uplink`` and
+   ``fused_uplink_ef`` bit for bit) and the main path's shapes; the four
+   leaf-table kernels, which cover a list of leaves in one call, over
+   VGG-9's 34 full-width leaves (f32 and bf16; ``masked_accumulate`` in
+   place with w = 0 rows; the uplinks at K = 20 with fedldf's w = 0 and
+   gate = 0 rows, ``fused_uplink`` also with every w non-zero; the Eq. 3
+   divergence at K = 20 and K = 1), SHAPES (1, 1), (9, 2049), (62, 33) as
+   one-entry and mixed tables (a scalar leaf, a misaligned view), 100
+   leaves in 3 calls, and uplink rows whose inf, NaN or huge scale (or
+   non-finite v) must give the plain NaN; the divergence within the
+   tolerance above and bit for bit the per-leaf kernel composed in leaf
+   order from 0 (also over stacked units, n = 3), the others bit for bit;
 4. ``run_training`` in ``mode="vmap"`` for 3 rounds on full-width VGG-9
-   with the paper's FL setup (N=50, K=20, n=4, B=32, lr=0.05, fedldf);
-   one round's divergence matrix, selection and new params are held
-   against the same round computed with the plain Eq. 3 reduction;
+   with the paper's FL setup (N=50, K=20, n=4, B=32, lr=0.05, fedldf), one
+   ``sqdiff_rowsum`` call a round (over the round's leaf table); one
+   round's divergence matrix, selection and new params are held against
+   the same round computed with the plain Eq. 3 reduction;
 5. the same in ``mode="scan"``; its round must match phase 4's to 2e-5,
-   and it must launch ``masked_accumulate`` once a client (20 a round,
-   each over the client's leaf table);
+   and it must call ``masked_accumulate`` and ``sqdiff_rowsum`` once a
+   client (20 a round, each over the client's leaf table);
 6. the packed compressed uplink, setting A (int8 levels, error feedback):
    ``run_training`` for 3 rounds, exact uplink bytes, the (50, ...)
-   residual store and 34 ``fused_uplink_ef`` launches a round; one round
-   held against the same round through the plain uplink kernels
-   (identical selection and levels, params within 2e-5) and against the
-   legacy unfused chain (relative L2 below 1e-4);
+   residual store and 1 ``fused_uplink_ef`` launch a round (over the 34
+   leaves); one round held against the same round through the plain uplink
+   kernels (identical selection and levels, params within 2e-5) and
+   against the legacy unfused chain (relative L2 below 1e-4), and the
+   kernel on the round's own call, bit for bit;
 7. setting B (int4 levels, no error feedback): 2 rounds, exact uplink
    bytes, 1 ``fused_uplink`` launch a round (over the 34 leaves), one round
    against plain, and the kernel on the round's own call, bit for bit;
 8. kernel times at the main path's shapes beside the byte bound, the plain
-   version and a library call, and each path's round time; for the two
+   version and a library call, and each path's round time; for the
    leaf-table kernels also the single-leaf entry a leaf, and
    ``torch._foreach_addcmul_`` (with its kernel count) or every w
-   non-zero; one scan-round client's Eq. 3 (34 ``sqdiff_rowsum`` at K=1);
+   non-zero; for the Eq. 3 divergence (a vmap round, and a scan-round
+   client at K=1) also the old per-leaf composition of the unit sums, the
+   call with b already in L2, ``torch._foreach_norm(torch._foreach_sub(a,
+   b))`` at K=1, and its two kernels' device times under the profiler;
 9. serving full-width, full-depth qwen3-1.7b in f32 (TF32 off): batch 4, a
    2048-token prompt from a numpy seed, 32 greedy decode steps, through
    the flash-attention kernel, then the same steps through its plain
@@ -85,9 +93,8 @@ ROUNDS = 3
 ROUNDS_B = 2                # setting B (int4) runs fewer rounds
 NUM_TRAIN = 10_000          # the paper's 50,000 cut 5x (set-up time)
 TOL = {"rtol": 3e-3, "atol": 1e-5}  # tests/test_kernels.py:33,45
-UPLINK_TOL = {"rtol": 3e-5, "atol": 1e-5}  # tests/test_wire.py:187,206
 EQUIV_TOL = 2e-5            # benchmarks/round_engine_bench.py:59
-EXACT = {"rtol": 0.0, "atol": 0.0}   # the leaf-table kernels vs plain
+EXACT = {"rtol": 0.0, "atol": 0.0}   # the uplinks and accumulate vs plain
 # the leaf tables' reference SHAPES (one-entry and mixed tables)
 TABLE_SHAPES = [(1, 1), (9, 2049), (62, 33)]
 # tests/test_kernels.py:18
@@ -259,9 +266,9 @@ def main():
             want_num, want_res = kref.fused_uplink_ef(lv, sc, w, gate, v,
                                                       e_old)
             e1 = compare(f"fused_uplink_ef {shape} {dn} num", num, want_num,
-                         UPLINK_TOL)
+                         EXACT)
             e2 = compare(f"fused_uplink_ef {shape} {dn} res", res, want_res,
-                         UPLINK_TOL)
+                         EXACT)
             off = gate == 0
             if not torch.equal(res[off], e_old.float()[off]):
                 failures.append(f"fused_uplink_ef {shape} {dn}: gate == 0 "
@@ -382,6 +389,151 @@ def main():
     check_uplink_table("w=0 rows with scale inf, NaN, 3e38 (not skipped)",
                        levels, scales, ws, 1)
     del accs, xs, ws, levels, scales
+
+    # the grouped Eq. 3 divergence and the grouped error-feedback uplink:
+    # one C call over a table of leaves (one a chunk of 48); the divergence
+    # within TOL of plain and bit for bit the per-leaf kernel composed in
+    # leaf order from 0, the EF uplink bit for bit
+    def sq_table(shapes, kk, dtype):
+        """(a (K·n, C), b (n, C), unit) a leaf; leaf i's rows are its own
+        units."""
+        a, b, units, off = [], [], [], 0
+        for n, c in shapes:
+            a.append(randn((kk * n, c), dtype))
+            b.append(randn((n, c), dtype))
+            units.append((off, n))
+            off += n
+        return a, b, units
+
+    def check_sq_table(label, a, b, units, calls):
+        before = ops.launch_counts()["sqdiff_rowsum"]
+        got = divergence.sqdiff_rowsum_leaves(a, b, units)
+        launched = ops.launch_counts()["sqdiff_rowsum"] - before
+        err = compare(f"sqdiff_rowsum_leaves {label}", got,
+                      kref.sqdiff_rowsum_leaves(a, b, units), quiet=True)
+        kk = got.shape[0]
+        composed = torch.zeros_like(got)
+        for x, y, (off, n) in zip(a, b, units):
+            composed[:, off:off + n] = (composed[:, off:off + n] + divergence
+                                        .sqdiff_rowsum(x, y).reshape(kk, n))
+        same = torch.equal(got, composed)
+        again = torch.equal(got, divergence.sqdiff_rowsum_leaves(a, b, units))
+        say(f"[kernel] sqdiff_rowsum_leaves {label}: {len(a)} leaves, "
+            f"(K, U) = {tuple(got.shape)}, in {launched} call(s) of 2 "
+            f"kernels (want {calls}): max_abs_err={err:.3e} (rtol "
+            f"{TOL['rtol']}, atol {TOL['atol']}); bit for bit the per-leaf "
+            f"kernel composed in leaf order {same}; the same on a second "
+            f"call {again}")
+        if launched != calls or not (same and again):
+            failures.append(f"sqdiff_rowsum_leaves {label}: {launched} calls,"
+                            f" composed {same}, repeatable {again}")
+        return err
+
+    for kk in (20, 1):
+        for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            e = check_sq_table(f"VGG-9 full table K={kk} {dn}",
+                               *sq_table(vgg_shapes, kk, dtype), 1)
+            if dtype == torch.float32:
+                main_err["sqdiff_rowsum"] = max(main_err["sqdiff_rowsum"], e)
+    for dtype, dn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for shape in TABLE_SHAPES:
+            check_sq_table(f"{shape} K=3 one-entry {dn}",
+                           *sq_table([shape], 3, dtype), 1)
+        a, b, units = sq_table(TABLE_SHAPES + [(1, 4096), (4, 1000),
+                                               (1, 10)], 3, dtype)
+        a[3] = torch.randn(3 * 4096 + 1, generator=gen, device=dev,
+                           dtype=dtype)[1:].view(3, 4096)   # 4 bytes off
+        units[3] = (0, 1)                   # unit 0 holds two leaves
+        check_sq_table(f"mixed K=3 {dn}", a, b, units, 1)
+    a, b, _ = sq_table([(1, 10), (1, 4096), (3, 20), (3, 4096), (1, 33)], 4,
+                       torch.float32)
+    check_sq_table("stacked units (n = 3) K=4", a, b,
+                   [(0, 1), (1, 1), (2, 3), (2, 3), (5, 1)], 1)
+    shapes = [(1 + i % 3, 16 * (1 + i % 5)) for i in range(100)]
+    a, b, _ = sq_table(shapes, 2, torch.float32)
+    check_sq_table("100 leaves K=2", a, b,
+                   [(i % 7, n) for i, (n, _) in enumerate(shapes)], 3)
+
+    def ef_table(shapes, kk, v_dtype, e_dtype):
+        """(levels, v, e_old) a leaf and the shared (K, U) scales, w and
+        gate; 4 of every 5 clients have gate = 0 and w = 0 (fedldf's n = 4
+        of K = 20)."""
+        levels, v, e, units, off = [], [], [], [], 0
+        for n, c in shapes:
+            levels.append(torch.randint(-127, 128, (kk, n, c), generator=gen,
+                                        device=dev, dtype=torch.int8))
+            v.append(randn((kk, n, c), v_dtype))
+            e.append(randn((kk, n, c), e_dtype))
+            units.append((off, n))
+            off += n
+        sc = torch.rand((kk, off), generator=gen, device=dev) + 1e-4
+        gate = (torch.arange(kk, device=dev) % 5 == 0).float()[:, None] \
+            .expand(kk, off).contiguous()
+        w = torch.rand((kk, off), generator=gen, device=dev) * gate
+        return levels, v, e, units, sc, w, gate
+
+    def check_ef_table(label, levels, v, e, units, sc, w, gate, calls,
+                       keeps_e=True):
+        """Bit for bit, NaN where the plain version has NaN; gate = 0 rows
+        keep e_old (with finite inputs)."""
+        want = kref.fused_uplink_ef_leaves(levels, v, e, units, sc, w, gate)
+        before = ops.launch_counts()["fused_uplink_ef"]
+        got = uplink.fused_uplink_ef_leaves(levels, v, e, units, sc, w, gate)
+        launched = ops.launch_counts()["fused_uplink_ef"] - before
+        torch.cuda.synchronize()
+        err, bad, nans, kept = 0.0, 0, 0, True
+        for (num, res), (wn, wr), ee, (off, n) in zip(got, want, e, units):
+            for x, y in ((num, wn), (res, wr)):
+                nan = torch.isnan(y)
+                nans += int(nan.sum())
+                if not (torch.equal(torch.isnan(x), nan)
+                        and torch.equal(x[~nan], y[~nan])):
+                    bad += 1
+                if bool((~nan).any()):
+                    err = max(err, float((x[~nan] - y[~nan]).abs().max()))
+            off_rows = gate[:, off:off + n] == 0
+            kept &= torch.equal(res[off_rows], ee.float()[off_rows])
+        say(f"[kernel] fused_uplink_ef_leaves {label}: {len(got)} leaves in "
+            f"{launched} launch(es) (want {calls}): max_abs_err={err:.3e} "
+            f"(exact), {nans} NaN as plain, {bad} outputs differ; gate = 0 "
+            f"rows keep e_old: {kept}")
+        if bad or launched != calls or (keeps_e and not kept):
+            failures.append(f"fused_uplink_ef_leaves {label}: {bad} outputs "
+                            f"differ, {launched} launches, keeps e {kept}")
+        return err
+
+    for vd, vn in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for ed, en in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            e = check_ef_table(f"VGG-9 full table K=20, v {vn}, e_old {en}",
+                               *ef_table(vgg_shapes, 20, vd, ed), 1)
+            if vd == ed == torch.float32:
+                main_err["fused_uplink_ef"] = max(main_err["fused_uplink_ef"],
+                                                  e)
+    for shape in TABLE_SHAPES:
+        check_ef_table(f"{shape} K=5 one-entry",
+                       *ef_table([shape], 5, torch.float32, torch.float32), 1)
+    levels, v, e_, units, sc, w, gate = ef_table(
+        TABLE_SHAPES + [(1, 4096), (3, 1000), (1, 10)], 5, torch.float32,
+        torch.bfloat16)
+    levels[3] = torch.randint(-127, 128, (5 * 4096 + 1,), generator=gen,
+                              device=dev, dtype=torch.int8)[1:].view(
+                                  5, 1, 4096)         # 1 byte off 16
+    v[3] = torch.randn(5 * 4096 + 1, generator=gen, device=dev)[1:].view(
+        5, 1, 4096)                                  # 4 bytes off 16
+    check_ef_table("mixed K=5", levels, v, e_, units, sc, w, gate, 1)
+    levels, v, e_, units, sc, w, gate = ef_table([(1, 4096), (2, 10)] * 3, 5,
+                                                 torch.float32, torch.float32)
+    for i, bad in enumerate((math.inf, math.nan, 3e38)):
+        sc[1, units[2 * i][0]] = bad          # gate = 0, w = 0
+        sc[0, units[2 * i][0] + 1] = bad      # gate = 1
+        v[2 * i + 1][1, 0, 3] = bad           # a non-finite v, gate = 0
+    check_ef_table("scales inf, NaN, 3e38 and non-finite v (every row "
+                   "read)", levels, v, e_, units, sc, w, gate, 1,
+                   keeps_e=False)
+    check_ef_table("100 leaves K=3", *ef_table(
+        [(1 + i % 2, 16 * (1 + i % 7)) for i in range(100)], 3,
+        torch.float32, torch.float32), 3)
+    del a, b, levels, v, e_, sc, w, gate
 
     fa_err = dict.fromkeys(flash_attention.ROUTES, 0.0)
     fa_seen = dict.fromkeys(flash_attention.ROUTES, 0)
@@ -544,8 +696,10 @@ def main():
         return params, counts, log
 
     p_vmap, counts_v, _ = drive(fl_v, "vmap")
-    if counts_v["sqdiff_rowsum"] == 0:
-        fail("vmap rounds launched no sqdiff_rowsum kernel")
+    if counts_v["sqdiff_rowsum"] != ROUNDS:
+        fail(f"vmap rounds made {counts_v['sqdiff_rowsum']} sqdiff_rowsum "
+             f"calls in {ROUNDS} rounds, expected 1 a round (over the "
+             f"round's leaf table)")
 
     # one round, kernel path vs the same round with the plain reduction
     rng = np.random.default_rng(SEED + 1)
@@ -583,11 +737,11 @@ def main():
 
     # ---- 5. scan rounds at full width ----------------------------------
     p_scan, counts_s, _ = drive(fl_s, "scan")
-    if counts_s["masked_accumulate"] != fl_s.clients_per_round * ROUNDS:
-        fail(f"scan rounds launched {counts_s['masked_accumulate']} "
-             f"masked_accumulate kernels, expected "
-             f"{fl_s.clients_per_round} a round (one a client, over its "
-             f"leaf table)")
+    for name in ("masked_accumulate", "sqdiff_rowsum"):
+        if counts_s[name] != fl_s.clients_per_round * ROUNDS:
+            fail(f"scan rounds made {counts_s[name]} {name} calls, expected "
+                 f"{fl_s.clients_per_round} a round (one a client, over its "
+                 f"leaf table)")
     round_s = build_round_scan(loss_fn, umap, fl_s)
     new_s, m_s = round_s(params0, batch, sizes)
     if not torch.equal(m_s["selection"], m_v["selection"]):
@@ -624,7 +778,7 @@ def main():
     divs_k = umap.divergence(locals_, params0)   # the same round's Eq. 3
     sel_k = topn_divergence(divs_k, fl_v.top_n)
     idx = torch.from_numpy(clients).to(dev)
-    recorded = {"fused_uplink_leaves": [], "fused_uplink_ef": []}
+    recorded = {"fused_uplink_leaves": [], "fused_uplink_ef_leaves": []}
 
     def recording(name):
         plain = getattr(kref, name)
@@ -650,12 +804,12 @@ def main():
         round function and its metrics."""
         ef = fl.compression.error_feedback
         name = "fused_uplink_ef" if ef else "fused_uplink"
-        entry = "fused_uplink_ef" if ef else "fused_uplink_leaves"
-        # with error feedback a launch a leaf, without one over the table
-        want = len(tree_leaves(params0)) if ef else 1
-        if counts[name] != want * rounds:
-            fail(f"setting {label}: {counts[name]} {name} launches in "
-                 f"{rounds} rounds, expected {want} a round")
+        entry = "fused_uplink_ef_leaves" if ef else "fused_uplink_leaves"
+        # one launch over the round's leaf table, and one Eq. 3 call
+        for n_ in (name, "sqdiff_rowsum"):
+            if counts[n_] != rounds:
+                fail(f"setting {label}: {counts[n_]} {n_} calls in {rounds} "
+                     f"rounds, expected 1 a round")
         round_c = build_round_vmap(loss_fn, umap, fl)
         new_c, m_c = round_c(params0, batch, sizes, rows)
         strat = make_strategy(fl)
@@ -720,20 +874,27 @@ def main():
     up_call = recorded["fused_uplink_leaves"][0]
     e = check_uplink_table("setting B round's own call", *up_call, 1)
     main_err["fused_uplink"] = max(main_err["fused_uplink"], e)
+    # and the EF kernel on setting A's own call (its 34 leaves)
+    ef_call = recorded["fused_uplink_ef_leaves"][0]
+    e = check_ef_table("setting A round's own call", *ef_call, 1)
+    main_err["fused_uplink_ef"] = max(main_err["fused_uplink_ef"], e)
     if failures:
         fail(f"kernel disagrees with its plain version: {failures}")
 
     # ---- 8. times ------------------------------------------------------
     flush = torch.empty(64 * 2**20, device=dev)     # 256 MB > 50 MB L2
 
-    def device_ms(fn, reps=20):
-        """Median device time of fn() with a cold L2: a GPU spin holds the
-        stream while the host enqueues fn, so host gaps are not timed."""
+    def device_ms(fn, reps=20, prep=None):
+        """Median device time of fn() with a cold L2 (but for what prep()
+        reads after the flush): a GPU spin holds the stream while the host
+        enqueues fn, so host gaps are not timed."""
         for _ in range(3):
             fn()
         spans, host = [], []
         for _ in range(reps):
             flush.zero_()
+            if prep is not None:
+                prep()
             torch.cuda._sleep(SLEEP_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -755,32 +916,90 @@ def main():
     def nb(t):
         return t.numel() * t.element_size()
 
-    # sqdiff_rowsum: one vmap round's Eq. 3, a launch per leaf, K=20
+    # sqdiff_rowsum: one vmap round's Eq. 3 (K=20) and one scan-round
+    # client's (K=1), the leaf tables UnitMap.sq_divergence hands the
+    # kernel, in one call each; beside them the per-leaf loop of the
+    # single-leaf entry, and that loop with the old composition of the unit
+    # sums (UnitMap.sq_divergence's per-leaf argument)
     k = fl_v.clients_per_round
-    sq_pairs = []
-    for key, (off, n) in umap.spans.items():
-        for a, b in zip(tree_leaves(locals_[key]), tree_leaves(params0[key])):
-            sq_pairs.append((a.reshape(k * n, -1), b.reshape(n, -1)))
-    sq_bytes = sum(nb(a) + nb(b) + a.shape[0] * 4 for a, b in sq_pairs)
-    sq_flops = sum(3 * a.numel() for a, _ in sq_pairs)
-    sq_bound, sq_by = bound_ms(sq_bytes, sq_flops)
-    sq_ms, sq_host = device_ms(lambda: [divergence.sqdiff_rowsum(a, b)
-                                        for a, b in sq_pairs])
-    sq_plain, _ = device_ms(lambda: [kref.sqdiff_rowsum(a, b)
-                                     for a, b in sq_pairs])
-    # sqdiff_rowsum: one scan-round client's Eq. 3, a launch per leaf, K=1
     local0 = tree_map(lambda v: v[0].contiguous(), locals_)
-    sq1_pairs = []
-    for key, (off, n) in umap.spans.items():
-        for a, b in zip(tree_leaves(local0[key]), tree_leaves(params0[key])):
-            sq1_pairs.append((a.reshape(n, -1), b.reshape(n, -1)))
-    sq1_bound, sq1_by = bound_ms(
-        sum(nb(a) + nb(b) + a.shape[0] * 4 for a, b in sq1_pairs),
-        sum(3 * a.numel() for a, _ in sq1_pairs))
-    sq1_ms, sq1_host = device_ms(lambda: [divergence.sqdiff_rowsum(a, b)
-                                          for a, b in sq1_pairs])
-    sq1_plain, _ = device_ms(lambda: [kref.sqdiff_rowsum(a, b)
-                                      for a, b in sq1_pairs])
+
+    def sq_args(loc, kk):
+        a, b, units = [], [], []
+        for key, (off, n) in umap.spans.items():
+            for x, y in zip(tree_leaves(loc[key]), tree_leaves(params0[key])):
+                a.append(x.reshape(kk * n, -1))
+                b.append(y.reshape(n, -1))
+                units.append((off, n))
+        return a, b, units
+
+    def sq_bound(a, b, kk):
+        return bound_ms(sum(nb(x) + nb(y) for x, y in zip(a, b))
+                        + kk * umap.num_units * 4,
+                        sum(3 * x.numel() for x in a))
+
+    sq_times = {}
+    for kk, loc in ((k, locals_), (1, local0)):
+        a, b, units = sq_args(loc, kk)
+        e = check_sq_table(f"the main path's own leaves, K={kk}", a, b,
+                           units, 1)
+        main_err["sqdiff_rowsum"] = max(main_err["sqdiff_rowsum"], e)
+        bound, by = sq_bound(a, b, kk)
+        ms, host = device_ms(lambda: divergence.sqdiff_rowsum_leaves(
+            a, b, units))
+        loop, loop_host = device_ms(lambda: [divergence.sqdiff_rowsum(x, y)
+                                             for x, y in zip(a, b)])
+        old, old_host = device_ms(lambda: umap.sq_divergence(
+            loc, params0, sqdiff_rowsum=divergence.sqdiff_rowsum))
+        plain, _ = device_ms(lambda: kref.sqdiff_rowsum_leaves(a, b, units))
+        # what keeping b (the global model) in L2 could give: b read just
+        # before the timed call, after the flush
+        warm_b, _ = device_ms(lambda: divergence.sqdiff_rowsum_leaves(
+            a, b, units), prep=lambda: torch._foreach_norm(b))
+        # a cold L2 without the flush's dirty lines: reading the flush
+        # buffer after writing it leaves L2 clean, so no write-back
+        # competes with the call's reads
+        clean, _ = device_ms(lambda: divergence.sqdiff_rowsum_leaves(
+            a, b, units), prep=lambda: flush.sum())
+        sq_times[kk] = dict(ms=ms, host=host, loop=loop, loop_host=loop_host,
+                            old=old, old_host=old_host, plain=plain,
+                            bound=bound, by=by, warm_b=warm_b, clean=clean,
+                            n=len(a),
+                            mb=sum(nb(x) + nb(y) for x, y in zip(a, b)) / 1e6)
+        if kk == 1:
+            # two PyTorch calls that give the leaves' L2 norms (not the f32
+            # sums of squares the unit map needs)
+            fa = [x.reshape(-1) for x in a]
+            fb = [y.reshape(-1) for y in b]
+            sq_times[kk]["lib"], _ = device_ms(
+                lambda: torch._foreach_norm(torch._foreach_sub(fa, fb)))
+            # where a call's device time goes: its two kernels under the
+            # profiler (pass 1 over the table, pass 2 over the units)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    divergence.sqdiff_rowsum_leaves(a, b, units)
+                torch.cuda.synchronize()
+            sq_times[kk]["kernels"] = {
+                ev.key[:40]: ev.self_device_time_total / ev.count / 1e3
+                for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and "sqdiff" in ev.key}
+            # the same 10 calls back to back under CUDA events: what a call
+            # takes beyond its two kernels' device time is the gap between
+            # them (and the ramps), the most a one-launch finish could save
+            torch.cuda._sleep(SLEEP_CYCLES)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            for _ in range(10):
+                divergence.sqdiff_rowsum_leaves(a, b, units)
+            ev1.record()
+            torch.cuda.synchronize()
+            sq_times[kk]["warm_span"] = ev0.elapsed_time(ev1) / 10
+    sq_ms, sq_plain = sq_times[k]["ms"], sq_times[k]["plain"]
+    sq_bound_v, sq_by = sq_times[k]["bound"], sq_times[k]["by"]
+    sq_pairs = list(zip(*sq_args(locals_, k)[:2]))
     # masked_accumulate: one client's Eq. 5 streaming add (scan round), the
     # (acc, x, w) triples UnitMap.accumulate hands the kernel, recorded
     # through its per-leaf argument
@@ -833,10 +1052,15 @@ def main():
     big_ma_lib, _ = device_ms(lambda: m7.addcmul_(w7[:, None], x7))
     big_ma_bound, _ = bound_ms(2 * nb(m7) + nb(x7) + nb(w7), 2 * m7.numel())
 
-    # fused_uplink_ef: one setting-A round's 34 launches; fused_uplink: one
-    # setting-B round's call over its 34 leaves; the arguments the round
-    # gave the kernels
-    ef_calls = recorded["fused_uplink_ef"]
+    # fused_uplink_ef: one setting-A round's call over its 34 leaves;
+    # fused_uplink: one setting-B round's; the arguments the round gave the
+    # kernels. ef_leaves: the same call as one single-leaf entry a leaf
+    # (the (K, n) segments of scales, w and gate copied untimed)
+    ef_levels, ef_v, ef_e, ef_units, ef_s, ef_w, ef_g = ef_call
+    ef_leaves = [(lv, *(t[:, off:off + n].contiguous()
+                        for t in (ef_s, ef_w, ef_g)), v, e)
+                 for lv, v, e, (off, n) in zip(ef_levels, ef_v, ef_e,
+                                               ef_units)]
     up_leaves = list(zip(*up_call))
 
     def ef_bytes(a):
@@ -856,14 +1080,17 @@ def main():
         return 3 * lv.shape[2] * (int((w != 0).sum()) if live_only
                                   else w.numel())
 
-    ef_nbytes = sum(ef_bytes(a) for a in ef_calls)
+    # the shared (K, U) scales, w and gate are read once
+    ef_nbytes = (sum(ef_bytes(a) - nb(a[1]) - nb(a[2]) - nb(a[3])
+                     for a in ef_leaves) + nb(ef_s) + nb(ef_w) + nb(ef_g))
     ef_bound, ef_by = bound_ms(ef_nbytes,
-                               sum(7 * a[0].numel() for a in ef_calls))
-    ef_ms, ef_host = device_ms(lambda: [uplink.fused_uplink_ef(*a)
-                                        for a in ef_calls])
-    ef_plain, _ = device_ms(lambda: [kref.fused_uplink_ef(*a)
-                                     for a in ef_calls])
-    e7 = max(ef_calls, key=lambda a: a[0].numel())
+                               sum(7 * a[0].numel() for a in ef_leaves))
+    ef_ms, ef_host = device_ms(lambda: uplink.fused_uplink_ef_leaves(
+        *ef_call))
+    ef_loop, ef_loop_host = device_ms(lambda: [uplink.fused_uplink_ef(*a)
+                                               for a in ef_leaves])
+    ef_plain, _ = device_ms(lambda: kref.fused_uplink_ef_leaves(*ef_call))
+    e7 = max(ef_leaves, key=lambda a: a[0].numel())
     big_ef, _ = device_ms(lambda: uplink.fused_uplink_ef(*e7))
     big_ef_bound, _ = bound_ms(ef_bytes(e7), 7 * e7[0].numel())
     up_nbytes = sum(up_bytes(a) for a in up_leaves)
@@ -909,20 +1136,37 @@ def main():
     sq_per_round_s = counts_s["sqdiff_rowsum"] // ROUNDS
     ma_per_round = counts_s["masked_accumulate"] // ROUNDS
     say(f"[times] card: {smi}")
-    say(f"[times] sqdiff_rowsum, one vmap round's Eq. 3 ({len(sq_pairs)} "
-        f"launches, K={k}, {sq_bytes / 1e6:.2f} MB): kernel_ms={sq_ms:.4f} "
-        f"bound_ms={sq_bound:.4f} ({sq_by}) plain_ms={sq_plain:.4f} "
-        f"library_ms=none (no single PyTorch call computes a per-row sum "
-        f"of squared differences; F.pairwise_distance adds eps and takes "
-        f"the root) host_enqueue_ms={sq_host:.4f}; launches per round: "
-        f"vmap {sq_per_round_v}, scan {sq_per_round_s}")
+    for kk, use in ((k, "one vmap round's Eq. 3"),
+                    (1, "one scan-round client's Eq. 3")):
+        t = sq_times[kk]
+        say(f"[times] sqdiff_rowsum, {use} ({t['n']} leaves in 1 call of 2 "
+            f"kernels, K={kk}, {t['mb']:.2f} MB): kernel_ms={t['ms']:.4f} "
+            f"bound_ms={t['bound']:.4f} ({t['by']}) plain_ms="
+            f"{t['plain']:.4f} host_enqueue_ms={t['host']:.4f}; the "
+            f"single-leaf entry a leaf ({t['n']} calls): kernel_ms="
+            f"{t['loop']:.4f} host_enqueue_ms={t['loop_host']:.4f}; with "
+            f"the per-leaf composition of the unit sums (UnitMap."
+            f"sq_divergence's per-leaf argument): kernel_ms={t['old']:.4f} "
+            f"host_enqueue_ms={t['old_host']:.4f}; b read into L2 just "
+            f"before the call: kernel_ms={t['warm_b']:.4f}; a cold L2 with "
+            f"no dirty lines to write back: kernel_ms={t['clean']:.4f}")
+    t = sq_times[1]
+    say(f"[times] sqdiff_rowsum, one scan-round client: library_ms="
+        f"{t['lib']:.4f} (two calls, torch._foreach_norm(torch."
+        f"_foreach_sub(a, b)); it returns the leaves' L2 norms, not the f32 "
+        f"per-unit sums of squares); device ms a kernel under torch."
+        f"profiler (warm L2, 10 calls): {t['kernels']}; the same 10 calls "
+        f"under CUDA events: {t['warm_span']:.4f} ms a call, "
+        f"{t['warm_span'] - sum(t['kernels'].values()):.4f} ms beyond the "
+        f"two kernels; x{k} clients: about {t['ms'] * k:.4f} ms a scan "
+        f"round")
+    say(f"[times] sqdiff_rowsum calls per round: vmap {sq_per_round_v}, "
+        f"scan {sq_per_round_s} (2 kernels a call); library_ms=none for a "
+        f"vmap round (no single PyTorch call computes a per-unit sum of "
+        f"squared differences; F.pairwise_distance adds eps and takes the "
+        f"root)")
     say(f"[times] sqdiff_rowsum, conv7.w alone {tuple(s7.shape)}: "
         f"kernel_ms={big_sq:.4f} bound_ms={big_sq_bound:.4f}")
-    say(f"[times] sqdiff_rowsum, one scan-round client's Eq. 3 "
-        f"({len(sq1_pairs)} launches, K=1): kernel_ms={sq1_ms:.4f} "
-        f"bound_ms={sq1_bound:.4f} ({sq1_by}) plain_ms={sq1_plain:.4f} "
-        f"host_enqueue_ms={sq1_host:.4f} (x{k} clients: about "
-        f"{sq1_ms * k:.4f} ms a scan round)")
     say(f"[times] masked_accumulate, one client's Eq. 5 add "
         f"({len(ma_triples)} leaves in 1 launch, {ma_bytes / 1e6:.2f} MB, "
         f"in place): kernel_ms={ma_ms:.4f} bound_ms={ma_bound:.4f} "
@@ -939,13 +1183,14 @@ def main():
         f"library_ms={big_ma_lib:.4f}")
     ef_per_round = counts_a["fused_uplink_ef"] // ROUNDS
     up_per_round = counts_b["fused_uplink"] // ROUNDS_B
-    say(f"[times] fused_uplink_ef, one setting-A round ({len(ef_calls)} "
-        f"launches, K={k}, {ef_nbytes / 1e6:.2f} MB): kernel_ms="
+    say(f"[times] fused_uplink_ef, one setting-A round ({len(ef_leaves)} "
+        f"leaves in 1 launch, K={k}, {ef_nbytes / 1e6:.2f} MB): kernel_ms="
         f"{ef_ms:.4f} bound_ms={ef_bound:.4f} ({ef_by}) plain_ms="
         f"{ef_plain:.4f} library_ms=none (no single PyTorch call returns "
         f"both the Eq. 5 numerator and the gated residual) "
-        f"host_enqueue_ms={ef_host:.4f}; launches per round: "
-        f"{ef_per_round}")
+        f"host_enqueue_ms={ef_host:.4f}; the single-leaf entry a leaf: "
+        f"kernel_ms={ef_loop:.4f} host_enqueue_ms={ef_loop_host:.4f}; "
+        f"launches per round: {ef_per_round}")
     say(f"[times] fused_uplink_ef, conv7.w alone {tuple(e7[0].shape)}: "
         f"kernel_ms={big_ef:.4f} bound_ms={big_ef_bound:.4f}")
     say(f"[times] fused_uplink, one setting-B round ({len(up_leaves)} "
@@ -1200,7 +1445,7 @@ def main():
          "launches": sum(c["sqdiff_rowsum"]
                          for c in (counts_v, counts_s, counts_a, counts_b)),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
-         "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
+         "plain_ms": sq_plain, "bound_ms": sq_bound_v, "bound_by": sq_by,
          "library_ms": None},
         {"name": "masked_accumulate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",

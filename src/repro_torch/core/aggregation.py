@@ -92,19 +92,20 @@ def fedavg_stacked(stacked_params: Pytree, data_sizes: torch.Tensor) -> Pytree:
 
 def stacked_psum_finalize(partials: Pytree, denom: torch.Tensor,
                           umap: UnitMap, stacked_params: Pytree,
-                          fallback: Pytree) -> Pytree:
+                          fallback: Pytree | None) -> Pytree:
     """Epilogue of Eq. 5 over additive numerators: divide the f32
     ``partials`` by the per-unit ``denom``, fall back to ``fallback`` (the
     previous global model) for units with no uploads, and cast back to the
-    parameter dtype. ``stacked_params`` is only read for leaf dtypes (its
-    leaves need not carry a client axis)."""
+    parameter dtype. With ``fallback=None`` such a unit keeps its
+    numerator (divided by 1), as in the reference. ``stacked_params`` is
+    only read for leaf dtypes (its leaves need not carry a client axis)."""
     safe = torch.where(denom > 0, denom, torch.ones_like(denom))
 
     def finalize_one(key: str):
         off, n = umap.spans[key]
         seg_d, seg_s = denom[off:off + n], safe[off:off + n]
 
-        def fin(p, leaf, fb):
+        def fin(p, leaf, fb=None):
             if n > 1:
                 shape = (n,) + (1,) * (p.ndim - 1)
                 out = p / seg_s.reshape(shape)
@@ -112,10 +113,14 @@ def stacked_psum_finalize(partials: Pytree, denom: torch.Tensor,
             else:
                 out = p / seg_s[0]
                 alive = seg_d[0] > 0
-            return torch.where(alive, out, fb.float()).to(leaf.dtype)
+            if fb is not None:
+                out = torch.where(alive, out, fb.float())
+            return out.to(leaf.dtype)
 
-        return tree_map(fin, partials[key], stacked_params[key],
-                        fallback[key])
+        fsub = None if fallback is None else fallback[key]
+        if fsub is None:
+            return tree_map(fin, partials[key], stacked_params[key])
+        return tree_map(fin, partials[key], stacked_params[key], fsub)
 
     return {key: finalize_one(key) for key in stacked_params}
 

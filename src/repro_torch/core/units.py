@@ -13,7 +13,7 @@ same order as in the reference.
 
 Unlike the reference, whose divergence runs under ``jax.vmap``,
 :meth:`UnitMap.sq_divergence` takes client-stacked locals directly: one
-kernel launch per parameter leaf covers all K clients.
+kernel call over every parameter leaf covers all K clients.
 """
 from __future__ import annotations
 
@@ -120,25 +120,34 @@ class UnitMap:
         ``params`` is either one model (leaves shaped like ``ref``'s; the
         result is ``(U,)``) or K client models stacked on a leading axis
         (leaves ``(K, ...)``; the result is ``(K, U)``). Either way each
-        leaf is one ``sqdiff_rowsum`` call on a ``(K·n, C)`` view against
-        the ``(n, C)`` view of ``ref``, broadcast over the K clients.
-        ``sqdiff_rowsum`` defaults to :func:`repro_torch.kernels.ops.
-        sqdiff_rowsum` (the CUDA kernel for CUDA tensors).
+        leaf is a ``(K·n, C)`` view against the ``(n, C)`` view of ``ref``,
+        broadcast over the K clients, and each unit adds its leaves in
+        tree order from 0.
+
+        By default one :func:`repro_torch.kernels.ops.sqdiff_rowsum_leaves`
+        call covers every leaf and returns the per-unit sums (one CUDA
+        kernel call for CUDA tensors). ``sqdiff_rowsum(a2d, b2d) -> (rows,)``
+        is instead called once a leaf, as in the reference.
         """
         from repro_torch.kernels import ops as kops  # local import; no cycle
-        rowsum = sqdiff_rowsum or kops.sqdiff_rowsum
         first_a = tree_leaves(params)[0]
         first_b = tree_leaves(ref)[0]
         stacked = first_a.ndim == first_b.ndim + 1
         k = first_a.shape[0] if stacked else 1
-        out = torch.zeros((k, self.num_units), dtype=torch.float32,
-                          device=first_a.device)
+        a2, b2, units = [], [], []
         for key, (off, n) in self.spans.items():
-            acc = torch.zeros(k * n, dtype=torch.float32,
-                              device=first_a.device)
             for a, b in zip(tree_leaves(params[key]), tree_leaves(ref[key])):
-                acc = acc + rowsum(a.reshape(k * n, -1), b.reshape(n, -1))
-            out[:, off:off + n] = acc.reshape(k, n)
+                a2.append(a.reshape(k * n, -1))
+                b2.append(b.reshape(n, -1))
+                units.append((off, n))
+        if sqdiff_rowsum is None:
+            out = kops.sqdiff_rowsum_leaves(a2, b2, units)
+        else:
+            out = torch.zeros((k, self.num_units), dtype=torch.float32,
+                              device=first_a.device)
+            for a, b, (off, n) in zip(a2, b2, units):
+                out[:, off:off + n] = (out[:, off:off + n]
+                                       + sqdiff_rowsum(a, b).reshape(k, n))
         return out if stacked else out[0]
 
     def divergence(self, params: Pytree, ref: Pytree,

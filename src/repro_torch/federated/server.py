@@ -6,7 +6,8 @@ Two per-round execution modes give the same aggregation semantics:
 - ``vmap``: all K clients train stacked under ``torch.func.vmap`` and their
   models are materialised with a leading client axis — the paper's own
   regime (small models, many clients). The Eq. 3 divergence of all K
-  clients is one ``sqdiff_rowsum`` kernel launch per parameter leaf.
+  clients is one ``sqdiff_rowsum`` kernel call over every parameter leaf
+  (one a client in ``scan`` mode).
 - ``scan``: clients run one after another. FedLDF needs all K divergence
   vectors *before* deciding what to aggregate, so the round runs two
   passes of deterministic local training (phase 1: divergence only;

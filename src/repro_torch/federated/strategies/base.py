@@ -132,7 +132,7 @@ class FLStrategy:
 
     def psum_finalize(self, parts: Pytree, denom: torch.Tensor,
                       umap: UnitMap, params: Pytree,
-                      fallback: Pytree) -> Pytree:
+                      fallback: Pytree | None) -> Pytree:
         return agg.stacked_psum_finalize(parts, denom, umap, params,
                                          fallback)
 

@@ -17,8 +17,8 @@ Two execution paths, chosen by ``CompressionConfig.fused``:
   waterfilled from the round's Eq. 3 divergence stats when
   ``bits="auto"``) — and dequantization, the EF residual update and the
   Eq. 5 numerator run through the fused uplink kernels
-  (:mod:`repro_torch.kernels.uplink`: one launch a round over every leaf
-  without error feedback, one a leaf with it), which never build
+  (:mod:`repro_torch.kernels.uplink`: one launch a round over every leaf,
+  with or without error feedback), which never build
   per-client f32 reconstructions. Comm accounting prices the payload's
   wire bytes (``PackedPayload.unit_wire_bytes``) through
   ``unit_bytes_override``.
@@ -39,18 +39,19 @@ import torch
 from repro_torch.core import aggregation as agg
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.compress import compress_upload
-from repro_torch.core.units import tree_map
+from repro_torch.core.units import tree_leaves, tree_map
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.strategies.base import FLStrategy
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.sharding import init_residual_store
 
 
-def _split(out, i: int):
-    """Element ``i`` of every tuple leaf of a tree of tuples."""
-    if isinstance(out, dict):
-        return {key: _split(v, i) for key, v in out.items()}
-    return out[i]
+def _unflatten(tree, leaves):
+    """A tree shaped like ``tree`` whose leaves, in ``tree_leaves`` order
+    (sorted keys), are taken from the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {key: _unflatten(tree[key], leaves) for key in sorted(tree)}
+    return next(leaves)
 
 
 class QuantizedUpload(FLStrategy):
@@ -119,23 +120,26 @@ class QuantizedUpload(FLStrategy):
     def _packed_reduce(self, locals_, global_params, umap, sel_rows, divs,
                        data_sizes, res_rows, *,
                        fused_uplink_leaves: Optional[Callable] = None,
+                       fused_uplink_ef_leaves: Optional[Callable] = None,
                        fused_uplink_ef: Optional[Callable] = None):
         """Stacked locals → packed payload → fused kernel reduction.
 
         Returns ``(num_parts, denom, new_res_rows, wire)``: ``num_parts``
         is the param-structured additive Eq. 5 numerator ``Σ_k w[k,u]·Θ̂_k
-        = denom_u·Ĝ + Σ_k w·scale·levels`` (the second term through the
-        fused uplink kernels: without error feedback one
-        ``fused_uplink_leaves`` call over every leaf, one launch a round;
-        with it one ``fused_uplink_ef`` launch a leaf), ``denom`` the
-        ``(U,)`` weight sums, and ``wire`` the payload's accounting plus the
-        payload itself (``"payload"``). ``fused_uplink_leaves`` and
-        ``fused_uplink_ef`` default to :mod:`repro_torch.kernels.ops`'s
-        (the CUDA kernels for CUDA tensors); passing the plain versions
-        runs the same round without the kernels.
+        = denom_u·Ĝ + Σ_k w·scale·levels`` (the second term through one
+        grouped fused uplink call over every leaf, one kernel launch a
+        round: ``fused_uplink_leaves`` without error feedback,
+        ``fused_uplink_ef_leaves`` with it), ``denom`` the ``(U,)`` weight
+        sums, and ``wire`` the payload's accounting plus the payload itself
+        (``"payload"``). Both grouped entries default to
+        :mod:`repro_torch.kernels.ops`'s (the CUDA kernels for CUDA
+        tensors); passing the plain versions runs the same round without
+        the kernels. ``fused_uplink_ef(levels, scales, w, gate, v, e_old)``
+        is instead called once a leaf, as in the reference.
         """
         uplink_leaves = fused_uplink_leaves or kops.fused_uplink_leaves
-        uplink_ef = fused_uplink_ef or kops.fused_uplink_ef
+        uplink_ef_leaves = (fused_uplink_ef_leaves
+                            or kops.fused_uplink_ef_leaves)
         comp = self.comp
         k = sel_rows.shape[0]
         bits = comp.bits_vector(umap, divs, device=sel_rows.device)  # (U,)
@@ -164,43 +168,52 @@ class QuantizedUpload(FLStrategy):
             num2 = num2 + d_seg[:, None] * g_leaf.float().reshape(n, -1)
             return num2.reshape(g_leaf.shape)
 
-        num_parts, res_parts = {}, ({} if ef else None)
+        # every leaf of the round as (K, n, C): each unit one row
+        lv3, units = [], []
+        for key, (off, n) in umap.spans.items():
+            for lv in tree_leaves(levels_k[key]):
+                lv3.append(lv.reshape(k, n, -1))
+                units.append((off, n))
         if not ef:
-            # every leaf of the round through one grouped call: (K, n, C)
-            # levels, each unit one row, and the (K, n) scales and weights
-            calls = []
-            for key, (off, n) in umap.spans.items():
-                s_seg = scales_k[:, off:off + n].contiguous()
-                w_seg = w[:, off:off + n].contiguous()
-                tree_map(lambda lv, n=n, s_seg=s_seg, w_seg=w_seg:
-                         calls.append((lv.reshape(k, n, -1), s_seg, w_seg)),
-                         levels_k[key])
-            nums = iter(uplink_leaves(*(list(c) for c in zip(*calls))))
-            for key, (off, n) in umap.spans.items():
-                d_seg = denom[off:off + n]
-                num_parts[key] = tree_map(
-                    lambda lv, g_leaf, d_seg=d_seg, n=n:
-                    finish(next(nums), g_leaf, d_seg, n),
-                    levels_k[key], global_params[key])
+            # the (K, n) scales and weights of each leaf's units, a copy a
+            # unit
+            segs = {off: (scales_k[:, off:off + n].contiguous(),
+                          w[:, off:off + n].contiguous())
+                    for off, n in umap.spans.values()}
+            outs = uplink_leaves(lv3, [segs[off][0] for off, _ in units],
+                                 [segs[off][1] for off, _ in units])
         else:
-            for key, (off, n) in umap.spans.items():
-                w_seg = w[:, off:off + n].contiguous()
-                s_seg = scales_k[:, off:off + n].contiguous()
-                g_seg = sel_rows[:, off:off + n].contiguous()
-                d_seg = denom[off:off + n]
-
-                def reduce_leaf(lv, vv, g_leaf, ee):
-                    # (K, n, ...) stacked or (K, ...): each unit is one row
-                    num2, res2 = uplink_ef(lv.reshape(k, n, -1), s_seg, w_seg,
-                                           g_seg, vv.reshape(k, n, -1),
-                                           ee.reshape(k, n, -1))
-                    return (finish(num2, g_leaf, d_seg, n),
-                            res2.reshape((k,) + g_leaf.shape))
-
-                out = tree_map(reduce_leaf, levels_k[key], v_k[key],
-                               global_params[key], res_rows[key])
-                num_parts[key] = _split(out, 0)
-                res_parts[key] = _split(out, 1)
+            v3 = [vv.reshape(k, n, -1) for key, (off, n) in umap.spans.items()
+                  for vv in tree_leaves(v_k[key])]
+            e3 = [ee.reshape(k, n, -1) for key, (off, n) in umap.spans.items()
+                  for ee in tree_leaves(res_rows[key])]
+            gate = sel_rows.float().contiguous()
+            if fused_uplink_ef is None:
+                # the round's shared (K, U) scales, weights and gates
+                outs = uplink_ef_leaves(lv3, v3, e3, units,
+                                        scales_k.contiguous(),
+                                        w.contiguous(), gate)
+            else:
+                outs = [fused_uplink_ef(lv, scales_k[:, off:off + n]
+                                        .contiguous(),
+                                        w[:, off:off + n].contiguous(),
+                                        gate[:, off:off + n].contiguous(),
+                                        vv, ee)
+                        for lv, vv, ee, (off, n) in zip(lv3, v3, e3, units)]
+        outs = iter(outs)
+        num_parts, res_parts = {}, ({} if ef else None)
+        for key, (off, n) in umap.spans.items():
+            d_seg = denom[off:off + n]
+            nums, ress = [], []
+            for g_leaf in tree_leaves(global_params[key]):
+                out = next(outs)
+                num2, res2 = out if ef else (out, None)
+                nums.append(finish(num2, g_leaf, d_seg, n))
+                if ef:
+                    ress.append(res2.reshape((k,) + g_leaf.shape))
+            num_parts[key] = _unflatten(global_params[key], iter(nums))
+            if ef:
+                res_parts[key] = _unflatten(global_params[key], iter(ress))
 
         wire = {"unit_bytes": payload.unit_wire_bytes(umap), "bits": bits,
                 "nbytes": payload.nbytes, "payload": payload}
@@ -209,10 +222,12 @@ class QuantizedUpload(FLStrategy):
     def uplink_round(self, locals_, global_params, umap, selection, divs,
                      data_sizes, res_rows, *,
                      fused_uplink_leaves: Optional[Callable] = None,
+                     fused_uplink_ef_leaves: Optional[Callable] = None,
                      fused_uplink_ef: Optional[Callable] = None):
         parts, denom, new_rows, wire = self._packed_reduce(
             locals_, global_params, umap, selection, divs, data_sizes,
             res_rows, fused_uplink_leaves=fused_uplink_leaves,
+            fused_uplink_ef_leaves=fused_uplink_ef_leaves,
             fused_uplink_ef=fused_uplink_ef)
         new_params = self.psum_finalize(parts, denom, umap, global_params,
                                         global_params)

@@ -77,7 +77,7 @@ def _launch(entries) -> None:
         width = _leaves.vector_width(cols, ((pa, 4), (px, x.element_size()),
                                             (po, 4)))
         desc += (pa, px, w.data_ptr(), po, rows, cols, _DTYPE_CODES[x.dtype],
-                 width)
+                 width, 0)
         blocks.append(_leaves.leaf_blocks(rows, cols, width, per_row=False))
     lib = _lib()
     _leaves.launch("masked_accumulate", lib,

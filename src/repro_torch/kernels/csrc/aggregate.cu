@@ -35,7 +35,7 @@
 namespace {
 
 using leaf_table::kThreads;
-using leaf_table::Table;
+using Table = leaf_table::TableOf<4>;
 
 // Table pointers: 0 acc (f32), 1 x (dtype 0 = f32, 1 = bf16), 2 w (f32,
 // one a row), 3 out (f32). Element sizes a dtype, for the alignment check.
@@ -90,8 +90,8 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// One launch over n <= 48 leaves. desc: n rows of 8 int64, (acc, x, w,
-// out, rows, cols, x_dtype, width) with acc, out (rows, cols) f32, x (rows,
+// One launch over n <= 48 leaves. desc: n rows of 9 int64, (acc, x, w,
+// out, rows, cols, x_dtype, width, unit = 0) with acc, out (rows, cols) f32, x (rows,
 // cols) f32 (x_dtype 0) or bf16 (1), w (rows,) f32, all contiguous, out
 // possibly acc; width 16, 4 or 1 elements a thread (cols a multiple of it,
 // acc, out and x aligned to min(16, width * element size) bytes). starts:
@@ -100,7 +100,7 @@ extern "C" {
 int repro_masked_accumulate_leaves(const long long* desc, const int* starts,
                                    int n, void* stream_ptr) {
   Table t;
-  if (!leaf_table::fill(&t, desc, starts, n, false, kEsize, 2))
+  if (!leaf_table::fill(&t, desc, starts, n, false, kEsize, 2, 16, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   masked_accumulate_leaves<<<t.start[n], kThreads, 0,
                              static_cast<cudaStream_t>(stream_ptr)>>>(t);

@@ -30,6 +30,17 @@ def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ref.sqdiff_rowsum(a, b)
 
 
+def sqdiff_rowsum_leaves(a: list[torch.Tensor], b: list[torch.Tensor],
+                         units: list[tuple[int, int]]) -> torch.Tensor:
+    """(K·n_i, C_i), (n_i, C_i) leaf pairs at units ``(off_i, n_i)`` ->
+    (K, U) float32 per-unit sums of :func:`sqdiff_rowsum`, each unit's
+    leaves added in list order from 0: one kernel call for them all on
+    CUDA."""
+    if a and a[0].device.type == "cuda":
+        return _divergence.sqdiff_rowsum_leaves(a, b, units)
+    return _ref.sqdiff_rowsum_leaves(a, b, units)
+
+
 def masked_accumulate(acc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                       out: torch.Tensor | None = None) -> torch.Tensor:
     """(R, C), (R, C), (R,) -> (R, C) float32 ``acc + w[:, None] * x``,
@@ -76,6 +87,22 @@ def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
     if levels.device.type == "cuda":
         return _uplink.fused_uplink_ef(levels, scales, w, gate, v, e_old)
     return _ref.fused_uplink_ef(levels, scales, w, gate, v, e_old)
+
+
+def fused_uplink_ef_leaves(levels: list[torch.Tensor],
+                           v: list[torch.Tensor], e_old: list[torch.Tensor],
+                           units: list[tuple[int, int]],
+                           scales: torch.Tensor, w: torch.Tensor,
+                           gate: torch.Tensor
+                           ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`fused_uplink_ef` of every (levels, v, e_old) leaf at units
+    ``(off_i, n_i)`` of the round's (K, U) scales, w and gate: one kernel
+    launch for them all on CUDA."""
+    if levels and levels[0].device.type == "cuda":
+        return _uplink.fused_uplink_ef_leaves(levels, v, e_old, units,
+                                              scales, w, gate)
+    return _ref.fused_uplink_ef_leaves(levels, v, e_old, units, scales, w,
+                                       gate)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

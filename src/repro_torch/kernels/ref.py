@@ -3,8 +3,10 @@
 They are the ground truth the CUDA kernels are held to on the card, and
 the path :mod:`repro_torch.kernels.ops` takes for tensors on the CPU. They
 mirror ``src/repro/kernels/ref.py`` (f32 accumulation, f32 result), with
-the two extensions the kernels have: ``b`` may be broadcast over client
-blocks, and the accumulate may write in place. The uplink sums run over
+the extensions the kernels have: ``b`` may be broadcast over client
+blocks, the accumulate may write in place, and each kernel has a grouped
+``*_leaves`` form over a list of leaves (the divergence's per-unit sums
+add a unit's leaves in list order from 0). The uplink sums run over
 the client axis in a fixed ascending order (the reference's einsum leaves
 the order open), so the CUDA kernels can match them bit for bit.
 
@@ -36,6 +38,28 @@ def sqdiff_rowsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = (a.float().reshape(rows // b.shape[0], b.shape[0], cols)
          - b.float())
     return (d * d).sum(dim=-1).reshape(rows)
+
+
+def sqdiff_rowsum_leaves(a: list[torch.Tensor], b: list[torch.Tensor],
+                         units: list[tuple[int, int]]) -> torch.Tensor:
+    """Per-unit sums of :func:`sqdiff_rowsum` over every (a, b) leaf, as the
+    CUDA kernel computes them in one call.
+
+    a[i]: (K·n_i, C_i); b[i]: (n_i, C_i); ``units[i] = (off_i, n_i)``, row
+    k·n_i + j of leaf i belonging to unit off_i + j of client k. Returns
+    (K, U) float32, U = max(off_i + n_i), each unit's leaves added in list
+    order starting from 0, as ``UnitMap.sq_divergence`` composes them.
+    """
+    if not len(a) == len(b) == len(units) or not a:
+        raise ValueError(f"sqdiff_rowsum_leaves needs equal, non-empty "
+                         f"lists; got {len(a)}, {len(b)}, {len(units)}")
+    kk = a[0].shape[0] // units[0][1]
+    out = torch.zeros((kk, max(off + n for off, n in units)),
+                      dtype=torch.float32, device=a[0].device)
+    for x, y, (off, n) in zip(a, b, units):
+        out[:, off:off + n] = out[:, off:off + n] + sqdiff_rowsum(
+            x, y).reshape(kk, n)
+    return out
 
 
 def masked_accumulate(acc: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -104,6 +128,24 @@ def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
     g = gate.float()[..., None]
     res = g * (v.float() - recon) + (1.0 - g) * e_old.float()
     return num, res
+
+
+def fused_uplink_ef_leaves(levels: list[torch.Tensor],
+                           v: list[torch.Tensor], e_old: list[torch.Tensor],
+                           units: list[tuple[int, int]],
+                           scales: torch.Tensor, w: torch.Tensor,
+                           gate: torch.Tensor
+                           ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`fused_uplink_ef` of every leaf, as the CUDA kernel does in one
+    launch: leaf i's rows are units ``off_i .. off_i + n_i − 1`` of the
+    round's (K, U) ``scales``, ``w`` and ``gate``."""
+    if not len(levels) == len(v) == len(e_old) == len(units):
+        raise ValueError(f"fused_uplink_ef_leaves needs equal lists; got "
+                         f"{len(levels)}, {len(v)}, {len(e_old)}, "
+                         f"{len(units)}")
+    return [fused_uplink_ef(lv, scales[:, off:off + n], w[:, off:off + n],
+                            gate[:, off:off + n], vv, ee)
+            for lv, vv, ee, (off, n) in zip(levels, v, e_old, units)]
 
 
 def _attention_mask(sq: int, skv: int, causal: bool, window: int,

@@ -1,16 +1,17 @@
 """CUDA kernel launchers: the fused packed-uplink reduction, dequantization
-plus the Eq. 5 numerator, over a table of leaves, and with the
-error-feedback residual, one leaf a launch.
+plus the Eq. 5 numerator, without and with the error-feedback residual,
+each over a table of leaves.
 
 Replaces the Pallas TPU kernels ``src/repro/kernels/uplink.py``
 (``fused_uplink`` / ``_uplink_kernel`` and ``fused_uplink_ef`` /
 ``_uplink_ef_kernel``). The kernels are ``csrc/uplink.cu``; its header
 says what bounds them on the card (bytes, and launches and latency when a
 model's leaves are small) and what the one launch over a table of leaves
-(``csrc/leaf_table.cuh``) does about that. :func:`fused_uplink_leaves`
-covers every leaf of a round in one launch; :func:`fused_uplink`, the TPU
-kernel's signature, is the same kernel over a one-entry table. The plain
-PyTorch versions are in :mod:`repro_torch.kernels.ref`;
+(``csrc/leaf_table.cuh``) does about that. :func:`fused_uplink_leaves` and
+:func:`fused_uplink_ef_leaves` cover every leaf of a round in one launch;
+:func:`fused_uplink` and :func:`fused_uplink_ef`, the TPU kernels'
+signatures, are the same kernels over a one-entry table. The plain PyTorch
+versions are in :mod:`repro_torch.kernels.ref`;
 :mod:`repro_torch.kernels.ops` picks by the tensor's device.
 """
 from __future__ import annotations
@@ -21,30 +22,31 @@ import torch
 
 from repro_torch.kernels import _build, _leaves
 
+_F32 = torch.float32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ALIGN = {torch.int8: 4, torch.float32: 16, torch.bfloat16: 8}  # 4 elements
-_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+EF_WIDTHS = (8, 4)          # uplink.cu ef_width: columns a thread
+_P, _I64 = ctypes.c_void_p, ctypes.c_longlong
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load(
         "uplink",
         repro_fused_uplink_leaves=_leaves.signature(_I64),
-        repro_fused_uplink_ef=[_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                               _I64, _I32, _I32, _I32, _P])
+        repro_fused_uplink_ef_leaves=_leaves.signature(_I64, _I64, _P, _P,
+                                                       _P))
 
 
-def _check(name: str, levels: torch.Tensor, rowvecs: tuple, mats: tuple,
-           outs: tuple) -> tuple[int, int, int, bool]:
+def _check(name: str, levels: torch.Tensor, rowvecs: tuple,
+           mats: tuple) -> None:
     """Device, dtype, shape and contiguity checks shared by both kernels;
-    returns (K, R, C, vec)."""
-    tensors = (levels, *rowvecs, *mats, *outs)
+    raises on the first that fails."""
+    tensors = (levels, *rowvecs, *mats)
     if levels.device.type != "cuda" or any(t.device != levels.device
                                            for t in tensors):
         raise ValueError(f"{name} kernel needs CUDA tensors on one device, "
                          f"got {[str(t.device) for t in tensors]}")
     if levels.dtype != torch.int8 or \
-            any(t.dtype != torch.float32 for t in rowvecs) or \
+            any(t.dtype != _F32 for t in rowvecs) or \
             any(t.dtype not in _DTYPE_CODES for t in mats):
         raise TypeError(f"{name} kernel takes int8 levels, f32 per-row "
                         "vectors and f32 or bf16 v/e_old; got "
@@ -63,10 +65,6 @@ def _check(name: str, levels: torch.Tensor, rowvecs: tuple, mats: tuple,
     if kk == 0 or rows == 0 or cols == 0:
         raise ValueError(f"{name} kernel got an empty input "
                          f"{tuple(levels.shape)}")
-    vec = cols % 4 == 0 and all(
-        t.data_ptr() % _ALIGN[t.dtype] == 0
-        for t in (levels, *mats, *outs))
-    return kk, rows, cols, vec
 
 
 def fused_uplink_leaves(levels: list[torch.Tensor],
@@ -98,7 +96,7 @@ def fused_uplink_leaves(levels: list[torch.Tensor],
                 and s.shape == shape[:2] and w.shape == shape[:2]
                 and lv.is_contiguous() and s.is_contiguous()
                 and w.is_contiguous() and lv.numel()):
-            _check("fused_uplink", lv, (s, w), (), ())
+            _check("fused_uplink", lv, (s, w), ())
             raise ValueError(f"fused_uplink_leaves needs one device and one "
                              f"K; got {lv.device}, K={shape[0]} after "
                              f"{device}, K={kk}")
@@ -106,7 +104,7 @@ def fused_uplink_leaves(levels: list[torch.Tensor],
         num = torch.empty((rows, cols), dtype=torch.float32, device=device)
         pl, pn = lv.data_ptr(), num.data_ptr()
         width = _leaves.vector_width(cols, ((pl, 1), (pn, 4)))
-        desc += (pl, s.data_ptr(), w.data_ptr(), pn, rows, cols, 0, width)
+        desc += (pl, s.data_ptr(), w.data_ptr(), pn, rows, cols, 0, width, 0)
         blocks.append(_leaves.leaf_blocks(rows, cols, width, per_row=True))
         nums.append(num)
     lib = _lib()
@@ -127,31 +125,90 @@ def fused_uplink(levels: torch.Tensor, scales: torch.Tensor,
     return fused_uplink_leaves([levels], [scales], [w])[0]
 
 
+def fused_uplink_ef_leaves(levels: list[torch.Tensor],
+                           v: list[torch.Tensor], e_old: list[torch.Tensor],
+                           units: list[tuple[int, int]],
+                           scales: torch.Tensor, w: torch.Tensor,
+                           gate: torch.Tensor
+                           ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Launch the kernel once over every leaf (once a chunk of
+    ``_leaves.MAX_LEAVES``): each leaf's :func:`fused_uplink_ef`, with its
+    (K, n) scales, weights and gates read from the round's shared (K, U)
+    matrices at the leaf's units.
+
+    levels[i]: (K, n_i, C_i) int8; v[i], e_old[i]: (K, n_i, C_i) f32 or
+    bf16 (each its own); ``units[i] = (off_i, n_i)``, the leaf's rows being
+    units off_i .. off_i + n_i − 1; scales, w, gate: (K, U) f32 with
+    off_i + n_i <= U; all contiguous CUDA tensors on one device with one K.
+    Returns each leaf's ``(num (n_i, C_i), new_res (K, n_i, C_i))`` f32.
+    Raises on anything else, and on a refused launch.
+    """
+    if not len(levels) == len(v) == len(e_old) == len(units) or not levels:
+        raise ValueError(f"fused_uplink_ef_leaves needs equal, non-empty "
+                         f"lists; got {len(levels)}, {len(v)}, {len(e_old)}, "
+                         f"{len(units)}")
+    device = levels[0].device
+    shared = (scales, w, gate)
+    if device.type != "cuda" or any(t.device != device for t in shared):
+        raise ValueError(f"fused_uplink_ef kernel needs CUDA tensors on one "
+                         f"device, got {device} and "
+                         f"{[str(t.device) for t in shared]}")
+    if any(t.dtype != _F32 or t.dim() != 2 or t.shape != scales.shape
+           or not t.is_contiguous() for t in shared):
+        raise ValueError("fused_uplink_ef kernel needs contiguous (K, U) f32 "
+                         f"scales, w and gate; got "
+                         f"{[(t.dtype, tuple(t.shape)) for t in shared]}")
+    kk, num_units = scales.shape
+    index = device.index
+    out, desc, blocks = [], [], []
+    for lv, vv, ee, (off, n) in zip(levels, v, e_old, units):
+        # one chain of cheap attribute tests a leaf; a leaf that fails
+        # gets its error from _check, or is on another K or unit
+        shape = lv.shape
+        if not (lv.get_device() == index and vv.get_device() == index
+                and ee.get_device() == index and lv.dtype is torch.int8
+                and vv.dtype in _DTYPE_CODES and ee.dtype in _DTYPE_CODES
+                and len(shape) == 3 and shape[0] == kk and shape[1] == n
+                and vv.shape == shape and ee.shape == shape
+                and 0 <= off and off + n <= num_units
+                and lv.is_contiguous() and vv.is_contiguous()
+                and ee.is_contiguous() and lv.numel()):
+            _check("fused_uplink_ef", lv, (), (vv, ee))
+            raise ValueError(f"fused_uplink_ef_leaves needs levels (K, n, "
+                             f"C) at units off .. off + n - 1 < U of the "
+                             f"(K, U) = ({kk}, {num_units}) scales; got "
+                             f"{tuple(shape)} at units ({off}, {n})")
+        _, rows, cols = shape
+        num = torch.empty((rows, cols), dtype=_F32, device=device)
+        res = torch.empty(shape, dtype=_F32, device=device)
+        pl, pv, pe = lv.data_ptr(), vv.data_ptr(), ee.data_ptr()
+        pn, pr = num.data_ptr(), res.data_ptr()
+        width = _leaves.vector_width(
+            cols, ((pl, 1), (pv, vv.element_size()), (pe, ee.element_size()),
+                   (pn, 4), (pr, 4)), EF_WIDTHS)
+        desc += (pl, pv, pe, pn, pr, rows, cols,
+                 _DTYPE_CODES[vv.dtype] + 2 * _DTYPE_CODES[ee.dtype], width,
+                 off)
+        blocks.append(_leaves.leaf_blocks(rows, cols, width, per_row=True))
+        out.append((num, res))
+    lib = _lib()
+    _leaves.launch("fused_uplink_ef", lib, lib.repro_fused_uplink_ef_leaves,
+                   desc, blocks, device, kk, num_units, scales.data_ptr(),
+                   w.data_ptr(), gate.data_ptr(), pointers=5)
+    return out
+
+
 def fused_uplink_ef(levels: torch.Tensor, scales: torch.Tensor,
                     w: torch.Tensor, gate: torch.Tensor, v: torch.Tensor,
                     e_old: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel: :func:`fused_uplink`'s ``num`` plus
-    ``new_res = gate·(v − recon) + (1 − gate)·e_old``.
+    """Launch the kernel over a one-entry table: :func:`fused_uplink`'s
+    ``num`` plus ``new_res = gate·(v − recon) + (1 − gate)·e_old``.
 
     levels: (K, R, C) int8; scales, w, gate: (K, R) f32; v, e_old: (K, R,
     C) f32 or bf16 (each its own); all contiguous CUDA tensors on one
     device. Returns ``(num (R, C), new_res (K, R, C))`` f32. Raises on
     anything else, and on a refused launch.
     """
-    num = torch.empty(levels.shape[1:], dtype=torch.float32,
-                      device=levels.device)
-    res = torch.empty(levels.shape, dtype=torch.float32,
-                      device=levels.device)
-    kk, rows, cols, vec = _check("fused_uplink_ef", levels,
-                                 (scales, w, gate), (v, e_old), (num, res))
-    lib = _lib()
-    with torch.cuda.device(levels.device):
-        code = lib.repro_fused_uplink_ef(
-            levels.data_ptr(), scales.data_ptr(), w.data_ptr(),
-            gate.data_ptr(), v.data_ptr(), e_old.data_ptr(), num.data_ptr(),
-            res.data_ptr(), kk, rows, cols, _DTYPE_CODES[v.dtype],
-            _DTYPE_CODES[e_old.dtype], int(vec),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, code, "fused_uplink_ef")
-    _build.LAUNCHES["fused_uplink_ef"] += 1
-    return num, res
+    _check("fused_uplink_ef", levels, (scales, w, gate), (v, e_old))
+    return fused_uplink_ef_leaves([levels], [v], [e_old],
+                                  [(0, levels.shape[1])], scales, w, gate)[0]

@@ -329,6 +329,198 @@ def test_cuda_leaf_tables_reject_bad_inputs(cuda):
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
+# The grouped Eq. 3 divergence and the grouped error-feedback uplink: one
+# C call over a table of leaves.
+def _sq_table(device, shapes, kk, dtype, seed):
+    """(a (K·n, C), b (n, C), unit) a leaf of K clients; leaf i's rows are
+    its own units."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a, b, units, off = [], [], [], 0
+    for n, c in shapes:
+        a.append(torch.randn((kk * n, c), generator=g, device=device,
+                             dtype=DTYPES[dtype]))
+        b.append(torch.randn((n, c), generator=g, device=device,
+                             dtype=DTYPES[dtype]))
+        units.append((off, n))
+        off += n
+    return a, b, units
+
+
+def _check_sq_table(a, b, units, calls):
+    """Within TOL of plain, and bit for bit the per-leaf kernel composed
+    in leaf order from 0 (the same within-leaf order); ``calls`` C calls
+    (one a chunk of 48 leaves)."""
+    before = ops.launch_counts()["sqdiff_rowsum"]
+    got = ops.sqdiff_rowsum_leaves(a, b, units)
+    assert ops.launch_counts()["sqdiff_rowsum"] - before == calls
+    torch.testing.assert_close(got, ref.sqdiff_rowsum_leaves(a, b, units),
+                               **TOL)
+    kk = got.shape[0]
+    composed = torch.zeros_like(got)
+    for x, y, (off, n) in zip(a, b, units):
+        composed[:, off:off + n] = (composed[:, off:off + n]
+                                    + tkd.sqdiff_rowsum(x, y).reshape(kk, n))
+    assert torch.equal(got, composed)
+    assert torch.equal(got, ops.sqdiff_rowsum_leaves(a, b, units))  # again
+    return got
+
+
+@pytest.mark.parametrize("kk", [20, 1])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_sqdiff_rowsum_leaves_vgg9_table(cuda, kk, dtype):
+    """A vmap round's (K = 20) and a scan-round client's (K = 1) Eq. 3 over
+    VGG-9's 34 full-width leaves in one call; fc.b takes the scalar path."""
+    _check_sq_table(*_sq_table(cuda, _vgg9_shapes(), kk, dtype, kk), 1)
+
+
+@pytest.mark.parametrize("table", ["one-entry", "mixed"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_sqdiff_rowsum_leaves_reference_shapes(cuda, table, dtype):
+    if table == "one-entry":
+        for i, shape in enumerate(TABLE_SHAPES):
+            _check_sq_table(*_sq_table(cuda, [shape], 3, dtype, i), 1)
+    else:
+        a, b, units = _sq_table(cuda, TABLE_SHAPES + [(1, 4096), (4, 1000),
+                                                     (1, 10)], 3, dtype, 7)
+        # a misaligned view among aligned leaves, on unit 0 with leaf 0
+        # (unit 72 then has no leaf and stays 0)
+        a[3] = torch.randn(3 * 4096 + 1, device=cuda,
+                           dtype=DTYPES[dtype])[1:].view(3, 4096)
+        units[3] = (0, 1)
+        got = _check_sq_table(a, b, units, 1)
+        assert bool((got[:, 72] == 0).all())
+
+
+def test_cuda_sqdiff_rowsum_leaves_stacked_units(cuda):
+    """A stacked subtree: leaves of n = 3 rows (units 2 .. 4) beside plain
+    units, K = 4."""
+    shapes = [(1, 10), (1, 4096), (3, 20), (3, 4096), (1, 33)]
+    a, b, _ = _sq_table(cuda, shapes, 4, "f32", 11)
+    units = [(0, 1), (1, 1), (2, 3), (2, 3), (5, 1)]
+    got = _check_sq_table(a, b, units, 1)
+    assert got.shape == (4, 6)
+
+
+def test_cuda_sqdiff_rowsum_leaves_chunks_a_long_table(cuda):
+    """100 leaves go in chunks of 48: 3 calls, later chunks adding to the
+    earlier ones' unit sums in leaf order."""
+    shapes = [(1 + i % 3, 16 * (1 + i % 5)) for i in range(100)]
+    a, b, units = _sq_table(cuda, shapes, 2, "f32", 3)
+    units = [(i % 7, n) for i, (n, _) in enumerate(shapes)]  # shared units
+    got = ops.sqdiff_rowsum_leaves(a, b, units)
+    assert ops.launch_counts()["sqdiff_rowsum"] == 3
+    torch.testing.assert_close(got, ref.sqdiff_rowsum_leaves(a, b, units),
+                               **TOL)
+
+
+def _ef_table(device, shapes, kk, v_dtype, e_dtype, seed):
+    """(levels, v, e_old) a leaf of K clients and the shared (K, U) scales,
+    w and gate; 4 of every 5 clients have gate = 0 and w = 0, as fedldf's
+    n = 4 of K = 20."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    levels, v, e, units, off = [], [], [], [], 0
+    for n, c in shapes:
+        levels.append(torch.randint(-127, 128, (kk, n, c), generator=g,
+                                    device=device, dtype=torch.int8))
+        v.append(torch.randn((kk, n, c), generator=g, device=device,
+                             dtype=DTYPES[v_dtype]))
+        e.append(torch.randn((kk, n, c), generator=g, device=device,
+                             dtype=DTYPES[e_dtype]))
+        units.append((off, n))
+        off += n
+    scales = torch.rand((kk, off), generator=g, device=device) + 1e-4
+    gate = (torch.arange(kk, device=device) % 5 == 0).float()[:, None] \
+        .expand(kk, off).contiguous()
+    w = torch.rand((kk, off), generator=g, device=device) * gate
+    return levels, v, e, units, scales, w, gate
+
+
+def _check_ef_table(levels, v, e, units, scales, w, gate, calls,
+                    keeps_e=True):
+    """Bit for bit, NaN where the plain version has NaN, in ``calls``
+    launches; gate = 0 rows keep e_old (with finite inputs)."""
+    want = ref.fused_uplink_ef_leaves(levels, v, e, units, scales, w, gate)
+    before = ops.launch_counts()["fused_uplink_ef"]
+    got = ops.fused_uplink_ef_leaves(levels, v, e, units, scales, w, gate)
+    assert ops.launch_counts()["fused_uplink_ef"] - before == calls
+    for (num, res), (wn, wr), ee, (off, n) in zip(got, want, e, units):
+        for a, b_ in ((num, wn), (res, wr)):
+            assert a.shape == b_.shape and a.dtype == torch.float32
+            nan = torch.isnan(b_)
+            assert torch.equal(torch.isnan(a), nan)
+            assert torch.equal(a[~nan], b_[~nan])
+        off_rows = gate[:, off:off + n] == 0
+        assert not keeps_e or torch.equal(res[off_rows], ee.float()[off_rows])
+
+
+@pytest.mark.parametrize("v_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("e_dtype", ["f32", "bf16"])
+def test_cuda_fused_uplink_ef_leaves_vgg9_table(cuda, v_dtype, e_dtype):
+    """One setting-A round's 34 leaves at K = 20 in one launch, bit for
+    bit; fc.b takes the scalar path."""
+    _check_ef_table(*_ef_table(cuda, _vgg9_shapes(), 20, v_dtype, e_dtype,
+                               2), 1)
+
+
+@pytest.mark.parametrize("table", ["one-entry", "mixed"])
+def test_cuda_fused_uplink_ef_leaves_reference_shapes(cuda, table):
+    if table == "one-entry":
+        for i, shape in enumerate(TABLE_SHAPES):
+            _check_ef_table(*_ef_table(cuda, [shape], 5, "f32", "f32", i), 1)
+    else:
+        shapes = TABLE_SHAPES + [(1, 4096), (3, 1000), (1, 10)]
+        levels, v, e, units, scales, w, gate = _ef_table(
+            cuda, shapes, 5, "f32", "bf16", 9)
+        # views at a 1-byte (levels) and 4-byte (v) offset among aligned
+        # leaves
+        levels[3] = torch.randint(-127, 128, (5 * 4096 + 1,), device=cuda,
+                                  dtype=torch.int8)[1:].view(5, 1, 4096)
+        v[3] = torch.randn(5 * 4096 + 1, device=cuda)[1:].view(5, 1, 4096)
+        _check_ef_table(levels, v, e, units, scales, w, gate, 1)
+
+
+def test_cuda_fused_uplink_ef_leaves_non_finite(cuda):
+    """inf, NaN and 3e38 scales and a non-finite v, with gate and w both 0
+    and both 1: the kernel reads every row, so it gives the plain NaN and
+    inf exactly where the plain version does."""
+    levels, v, e, units, scales, w, gate = _ef_table(
+        cuda, [(1, 4096), (2, 10)] * 3, 5, "f32", "f32", 4)
+    for i, bad in enumerate((float("inf"), float("nan"), 3e38)):
+        off = units[2 * i][0]
+        scales[1, off] = bad                 # gate = 0, w = 0
+        scales[0, off + 1] = bad             # gate = 1
+        v[2 * i + 1][1, 0, 3] = bad
+    _check_ef_table(levels, v, e, units, scales, w, gate, 1, keeps_e=False)
+
+
+def test_cuda_fused_uplink_ef_leaves_chunks_a_long_table(cuda):
+    shapes = [(1 + i % 2, 16 * (1 + i % 7)) for i in range(100)]
+    _check_ef_table(*_ef_table(cuda, shapes, 3, "f32", "f32", 5), 3)
+
+
+def test_cuda_grouped_tables_reject_bad_inputs(cuda):
+    a = torch.ones(4, 16, device=cuda)
+    with pytest.raises(ValueError):                  # 4 rows, 3 units
+        tkd.sqdiff_rowsum_leaves([a], [a[:3]], [(0, 3)])
+    with pytest.raises(TypeError):
+        tkd.sqdiff_rowsum_leaves([a, a.half()], [a[:1], a[:1].half()],
+                                 [(0, 1), (1, 1)])
+    with pytest.raises(ValueError):                  # two K in one table
+        tkd.sqdiff_rowsum_leaves([a, a[:2].contiguous()], [a[:1], a[:1]],
+                                 [(0, 1), (1, 1)])
+    levels, v, e, units, scales, w, gate = _ef_table(
+        cuda, [(1, 64), (2, 64)], 3, "f32", "f32", 0)
+    with pytest.raises(ValueError):                  # units past U
+        tku.fused_uplink_ef_leaves(levels, v, e, [(0, 1), (2, 2)], scales,
+                                   w, gate)
+    with pytest.raises(ValueError):                  # (K, U) mismatch
+        tku.fused_uplink_ef_leaves(levels, v, e, units, scales[:2], w, gate)
+    with pytest.raises(TypeError):
+        tku.fused_uplink_ef_leaves(levels, [v[0].half(), v[1]], e, units,
+                                   scales, w, gate)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
 @pytest.mark.parametrize("bits,ef", [(8, True), (4, False)])
 def test_cuda_compressed_round_matches_cpu_round(cuda, bits, ef):
     """One compressed fedldf round through the uplink kernels on the card
@@ -360,12 +552,10 @@ def test_cuda_compressed_round_matches_cpu_round(cuda, bits, ef):
             torch.testing.assert_close(a.cpu(), c, rtol=0,
                                        atol=EQUIV_TOL + float(step[off]))
     counts = ops.launch_counts()
-    # error feedback: a launch a leaf; without: one over the leaf table
-    if ef:
-        assert counts["fused_uplink_ef"] == len(tree_leaves(params))
-    else:
-        assert counts["fused_uplink"] == 1
-    assert counts["sqdiff_rowsum"] == len(tree_leaves(params))
+    # one call over the leaf table, with or without error feedback, and one
+    # grouped Eq. 3 call
+    assert counts["fused_uplink_ef" if ef else "fused_uplink"] == 1
+    assert counts["sqdiff_rowsum"] == 1
 
 
 @pytest.mark.parametrize("mode", ["vmap", "scan"])

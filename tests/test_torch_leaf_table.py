@@ -345,8 +345,6 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
 
 
 def test_table_sources_include_the_leaf_table_header():
-    for name in ("aggregate", "uplink"):
+    for name in ("divergence", "aggregate", "uplink"):
         assert _build._sources(_build.CSRC / f"{name}.cu")[1:] == [
             _build.CSRC / "leaf_table.cuh"]
-    assert _build._sources(_build.CSRC / "divergence.cu") == [
-        _build.CSRC / "divergence.cu"]
