@@ -60,7 +60,23 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    and each route's device time per prefill and per decode step beside its
    bound, the plain version and ``scaled_dot_product_attention``; then the
    serve launcher (``python -m repro_torch.launch.serve --arch qwen3-1.7b``)
-   once.
+   once;
+11. the device-resident engine (``run_training_scan``) at the paper's FL
+   setup on the paper's 50,000 synthetic training images, in vmap, scan
+   and setting A: 4 rounds with ``eval_every=2`` (blocks end after rounds
+   1, 3 and 4); the same call again (run to run), and
+   ``run_training(sampler="device")``, which must equal it bit for bit
+   (within 2e-5 if two runs of the same call already differ); the same
+   kernel launches a round as phases 4-7; exact uplink bytes in every
+   round; resume, 2 + 2 rounds against 4; one 2-round block enqueued under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) and then
+   pulled once; the block's device busy time under ``torch.profiler`` and
+   its idle share; the engine's round time beside the host-sampler
+   driver's, and the host->device bytes each copies a round;
+12. each of the 7 registered algorithms for 2 rounds through the engine
+   (vmap), plus fedadp and fedldf in scan mode: launches a round from the
+   strategy's flags, uplink bytes against ``run_training(sampler=
+   "device")`` and, where it is fixed, the formula.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -74,9 +90,10 @@ shapes in bf16 and f32. Phase 9 times the CUDA-core route on the f32
 prefill's own calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. The data set is cut to 10,000 training
-images (200 per client instead of the paper's 1,000) to keep set-up short;
-weights are random, drawn from a fixed seed.
+``{"ok": true, "device": {...}}``. Phases 4-8 cut the data set to 10,000
+training images (200 per client instead of the paper's 1,000) to keep
+set-up short; phases 11-12 use the paper's 50,000. Weights are random,
+drawn from a fixed seed.
 """
 import dataclasses
 import json
@@ -92,6 +109,9 @@ SEED = 0
 ROUNDS = 3
 ROUNDS_B = 2                # setting B (int4) runs fewer rounds
 NUM_TRAIN = 10_000          # the paper's 50,000 cut 5x (set-up time)
+ENGINE_TRAIN = 50_000       # phases 11-12: the paper's 50,000 images
+ENGINE_TEST = 512           # test images for the engine's eval
+ENGINE_ROUNDS = 4           # eval_every=2: blocks end after rounds 1, 3, 4
 TOL = {"rtol": 3e-3, "atol": 1e-5}  # tests/test_kernels.py:33,45
 EQUIV_TOL = 2e-5            # benchmarks/round_engine_bench.py:59
 EXACT = {"rtol": 0.0, "atol": 0.0}   # the uplinks and accumulate vs plain
@@ -153,12 +173,15 @@ def main():
     from repro_torch.core.selection import topn_divergence
     from repro_torch.core.units import UnitMap, tree_leaves, tree_map
     from repro_torch.core.wire import UNIT_HEADER_BYTES
-    from repro_torch.data import (FederatedData, iid_partition,
+    from repro_torch.core.comm import comm_acc_init
+    from repro_torch.data import (ClientShards, FederatedData, iid_partition,
                                   make_image_dataset)
-    from repro_torch.federated import (CompressionConfig, build_round_scan,
-                                       build_round_vmap, make_local_update,
-                                       make_strategy, run_training,
+    from repro_torch.federated import (ALGOS, CompressionConfig, KeyedDraws,
+                                       build_round_scan, build_round_vmap,
+                                       make_local_update, make_strategy,
+                                       run_training, run_training_scan,
                                        sample_clients)
+    from repro_torch.federated import server as fl_server
     from repro_torch.configs import get_config
     from repro_torch.kernels import (_build, aggregate, divergence,
                                      flash_attention, ops, uplink)
@@ -166,7 +189,7 @@ def main():
     from repro_torch.launch import serve
     from repro_torch.models import decode as dec
     from repro_torch.models import transformer as tf
-    from repro_torch.models.cnn import classify_loss, init_params
+    from repro_torch.models.cnn import accuracy, classify_loss, init_params
     from repro_torch.models.config import dtype_of
     from repro_torch.optim import sgd
 
@@ -1437,6 +1460,229 @@ def main():
     say("[cli] python -m repro_torch.launch.serve --arch qwen3-1.7b "
         "--temperature 0:")
     serve.main(["--arch", SERVE_ARCH, "--temperature", "0"])
+
+    # ---- 11. the device-resident engine at the paper's setup ------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_e, test_e = make_image_dataset(num_train=ENGINE_TRAIN,
+                                         num_test=ENGINE_TEST, seed=SEED)
+    data_e = FederatedData(train_e.xs, train_e.ys, iid_partition(
+        train_e.ys, fl_v.num_clients, seed=SEED))
+    shards = ClientShards.from_federated(data_e).to(dev)
+    test_batch = {"images": torch.from_numpy(test_e.xs).to(dev),
+                  "labels": torch.from_numpy(test_e.ys).to(dev)}
+    say(f"[setup] engine: {ENGINE_TRAIN} training images on the card "
+        f"({shards.bytes_per_device() / 1e6:.1f} MB), {ENGINE_TEST} test "
+        f"images; {time.perf_counter() - t0:.2f} s")
+
+    def eval_fn(p):
+        with torch.no_grad():
+            return 1.0 - float(accuracy(p, cfg, test_batch))
+
+    def timed(fn):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts(), time.perf_counter() - t
+
+    def run_engine(fl, rounds, **kw):
+        return timed(lambda: run_training_scan(
+            params0, loss_fn, shards, fl, rounds=rounds, seed=SEED,
+            device=dev, **kw))
+
+    def run_host(fl, rounds, sampler, **kw):
+        return timed(lambda: run_training(
+            params0, loss_fn, shards if sampler == "device" else data_e, fl,
+            rounds=rounds, seed=SEED, sampler=sampler, device=dev, **kw))
+
+    def run_engine_from(fl, p, state):
+        """Rounds 2 and 3 from a 2-round run's params and final state."""
+        return timed(lambda: run_training_scan(
+            p, loss_fn, shards, fl, rounds=2, seed=SEED, start_round=2,
+            server_state=state, device=dev))
+
+    def per_round(counts, rounds):
+        return {n_: c / rounds for n_, c in counts.items() if c}
+
+    def bytes_a_round(fl):
+        if fl.compression is None:
+            return per_round_up
+        return WANT_UPLINK[int(fl.compression.bits)]
+
+    block_fn = fl_server._build_block_fn
+    eng = {}
+    for label, fl, counts_p in (("vmap", fl_v, counts_v),
+                                ("scan", fl_s, counts_s),
+                                ("A", fl_a, counts_a)):
+        r = ENGINE_ROUNDS
+        (p_e, log_e), c_e, wall_e = run_engine(fl, r, eval_fn=eval_fn,
+                                               eval_every=2)
+        (p_2, log_2), _, _ = run_engine(fl, r, eval_fn=eval_fn, eval_every=2)
+        (p_h, log_h), c_h, wall_h = run_host(fl, r, "device",
+                                             eval_fn=eval_fn, eval_every=2)
+        check_params(f"engine {label}", p_e)
+        if not all(np.isfinite(log_e.losses)) or len(log_e.losses) != r:
+            fail(f"engine {label}: losses {log_e.losses}")
+        cuts = [t_ for t_, _, _ in log_e.test_errors]
+        if cuts != [0, 2, 3] or \
+                [t_ for t_, _, _ in log_h.test_errors] != cuts:
+            fail(f"engine {label}: eval rounds {cuts}, expected [0, 2, 3] "
+                 f"(cuts 1, 3, 4) in both drivers")
+        # launches a round: the same as phases 4-7's host-sampler rounds
+        want_l = per_round(counts_p, ROUNDS)
+        if per_round(c_e, r) != want_l or per_round(c_h, r) != want_l:
+            fail(f"engine {label}: launches a round {per_round(c_e, r)} "
+                 f"(engine), {per_round(c_h, r)} (device sampler); phases "
+                 f"4-7 made {want_l}")
+        # run to run, and the engine against run_training(sampler="device")
+        rr = max_diff(p_e, p_2)
+        dh = max_diff(p_e, p_h)
+        same_h = dh == 0.0 and log_e.losses == log_h.losses
+        lim = 0.0 if rr == 0.0 and log_e.losses == log_2.losses else \
+            EQUIV_TOL
+        say(f"[engine {label}] run_training_scan {r} rounds, eval_every=2 "
+            f"(eval after rounds {cuts}): {wall_e:.3f} s; losses "
+            f"{log_e.losses}; test errors "
+            f"{[round(e, 4) for _, e, _ in log_e.test_errors]}; launches "
+            f"a round {per_round(c_e, r)} (phases 4-7: {want_l}); the same "
+            f"call again: params max_abs_diff {rr:.3e}; run_training("
+            f"sampler='device'): {wall_h:.3f} s, params max_abs_diff "
+            f"{dh:.3e}, bit for bit {same_h} (limit {lim})")
+        if dh > lim or (lim == 0.0 and not same_h):
+            fail(f"engine {label}: run_training(sampler='device') differs "
+                 f"from run_training_scan by {dh:.3e} (limit {lim})")
+        # exact uplink bytes a round
+        want_b = bytes_a_round(fl)
+        marks = [0.0] + [u * 1e6 for u in log_e.uplink_mb]
+        deltas = [b - a for a, b in zip(marks, marks[1:])]
+        if log_h.meter.uplink_bytes != r * want_b or \
+                any(d_ != want_b for d_ in deltas) or \
+                log_e.meter.uplink_bytes != r * want_b:
+            fail(f"engine {label}: uplink a round {deltas} (engine, f32 "
+                 f"accumulator), total {log_h.meter.uplink_bytes} (device "
+                 f"sampler); expected exactly {want_b} B a round")
+        # resume: 2 + 2 rounds through the final state
+        (p_a, log_a2), _, _ = run_engine(fl, 2)
+        (p_b, _), _, _ = run_engine_from(fl, p_a, log_a2.final_state)
+        dres = max_diff(p_b, p_e)
+        say(f"[engine {label}] uplink {deltas[0]:.0f} B a round, exact in "
+            f"each of {r} rounds; resume 2 + 2 rounds vs {r}: params "
+            f"max_abs_diff {dres:.3e} (limit {lim})")
+        if dres > lim:
+            fail(f"engine {label}: resumed run differs by {dres:.3e}")
+        # no host sync while a block enqueues; one pull a block after it
+        run_block = block_fn(loss_fn, umap, fl)
+        host_sizes = shards.part_sizes.cpu()
+        all_sizes = shards.data_sizes()
+
+        def fresh():
+            return (params0, make_strategy(fl).init_state(
+                params0, fl.num_clients), comm_acc_init(dev))
+
+        draws = KeyedDraws(SEED)
+        run_block(fresh(), shards, all_sizes, host_sizes, draws, 0, 2)
+        carry = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h = time.perf_counter()
+            carry, per = run_block(carry, shards, all_sizes, host_sizes,
+                                   draws, 0, 2)
+            enqueue_s = time.perf_counter() - h
+        except RuntimeError as e:
+            fail(f"engine {label}: a block synchronised the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        pulled = torch.stack([per["loss"], per["uplink_bytes"]]).cpu()
+        block_s = time.perf_counter() - h
+        if not bool(torch.isfinite(pulled).all()):
+            fail(f"engine {label}: block outputs {pulled}")
+        # the block's device busy time under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        carry = fresh()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            carry, per = run_block(carry, shards, all_sizes, host_sizes,
+                                   draws, 0, 2)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        del carry, per, p_2, p_h, p_a, p_b
+        # round wall-clock: the engine beside the host-sampler driver
+        t_eng = statistics.median(run_engine(fl, r)[2] / r * 1e3
+                                  for _ in range(3))
+        t_host = statistics.median(run_host(fl, r, "host")[2] / r * 1e3
+                                   for _ in range(3))
+        idle = 1.0 - busy / 2 / t_eng
+        eng[label] = {"engine_ms": t_eng, "host_ms": t_host,
+                      "device_ms": wall_h / r * 1e3, "busy_ms": busy / 2,
+                      "idle": idle, "enqueue_ms": enqueue_s / 2 * 1e3,
+                      "block_ms": block_s / 2 * 1e3}
+        say(f"[engine {label}] one 2-round block under set_sync_debug_mode"
+            f"('error'): 0 syncs while it enqueued ({enqueue_s * 1e3:.3f} "
+            f"ms), then 1 pull of {tuple(pulled.shape)}; block "
+            f"{block_s * 1e3:.3f} ms; device busy under torch.profiler "
+            f"{busy / 2:.3f} ms a round, idle share {idle:.4f} of the "
+            f"engine round")
+        del p_e, log_e, log_h
+
+    # host->device bytes a round, from the shapes each driver copies
+    k_, b_ = fl_v.clients_per_round, fl_v.batch_per_client
+    h2d_host = (k_ * b_ * (train_e.xs[0].nbytes + train_e.ys[0].nbytes)
+                + k_ * 4 + k_ * 8)           # batch, |D_k|, client ids
+    h2d_engine = k_ * 8 + k_ * b_ * 8        # client ids, sample indices
+    for label, e in eng.items():
+        say(f"[times] engine round wall-clock ({label}, median of 3 calls of "
+            f"{ENGINE_ROUNDS} rounds, set-up included): run_training_scan "
+            f"{e['engine_ms']:.3f} ms, run_training(sampler='host') "
+            f"{e['host_ms']:.3f} ms, run_training(sampler='device') "
+            f"{e['device_ms']:.3f} ms (one call); device busy "
+            f"{e['busy_ms']:.3f} ms a round, idle share {e['idle']:.4f}; "
+            f"enqueue {e['enqueue_ms']:.3f} ms a round ({smi})")
+    say(f"[engine] host->device bytes a round: run_training(sampler='host') "
+        f"{h2d_host} B (the (K, B) batch, |D_k| and client ids), "
+        f"run_training_scan {h2d_engine} B (client ids and sample indices, "
+        f"one copy a block; the random policies add K*U*4 B of uniforms); "
+        f"{h2d_host - h2d_engine} B less")
+
+    # ---- 12. every strategy through the engine --------------------------
+    for algo, mode in ([(a, "vmap") for a in ALGOS]
+                       + [("fedadp", "scan"), ("fedldf", "scan")]):
+        fl = vgg9.fl_config(algo=algo, mode=mode)
+        strat = make_strategy(fl)
+        k_ = fl.clients_per_round
+        want_l = {}
+        if strat.needs_divergence:
+            want_l["sqdiff_rowsum"] = 1.0 if mode == "vmap" else float(k_)
+        if mode == "scan" and strat.eq5_weighted:
+            want_l["masked_accumulate"] = float(k_)
+        (p_e, log_e), c_e, wall_e = run_engine(fl, 2)
+        (p_h, log_h), _, _ = run_host(fl, 2, "device")
+        check_params(f"{algo} {mode}", p_e)
+        d = max_diff(p_e, p_h)
+        up_e, up_h = log_e.meter.uplink_bytes, log_h.meter.uplink_bytes
+        formula = {"fedldf": per_round_up, "fedavg": k_ * umap.total_bytes,
+                   "random": fl.top_n * umap.total_bytes,
+                   "hdfl": fl.top_n * umap.total_bytes,
+                   "fedadp": fl.algo_options.keep * k_ * umap.total_bytes
+                   if algo == "fedadp" else None}.get(algo)
+        say(f"[algos] {algo} {mode}: 2 rounds {wall_e:.3f} s; losses "
+            f"{log_e.losses}; launches a round {per_round(c_e, 2)} (want "
+            f"{want_l}); uplink {up_e:.0f} B (engine), {up_h:.0f} B "
+            f"(run_training(sampler='device'), params max_abs_diff {d:.3e})"
+            + ("" if formula is None else
+               f"; expected {2 * formula:.0f} B"))
+        if not all(np.isfinite(log_e.losses)) or \
+                per_round(c_e, 2) != want_l or d > EQUIV_TOL or \
+                abs(up_e - up_h) > 1e-6 * up_h or \
+                (formula is not None
+                 and abs(up_h - 2 * formula) > 1e-6 * up_h):
+            fail(f"{algo} {mode}: the engine's run is not as expected")
+        del p_e, p_h
+    del shards, test_batch, data_e, train_e
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

@@ -6,7 +6,9 @@ from repro_torch.core.aggregation import (aggregate_stacked, fedavg_stacked,
                                           streaming_add, streaming_finalize,
                                           streaming_init, unit_weights)
 from repro_torch.core.comm import CommMeter, round_comm
-from repro_torch.core.selection import full_participation, topn_divergence
+from repro_torch.core.selection import (bernoulli_per_layer, client_dropout,
+                                        full_participation, random_per_layer,
+                                        topn_divergence)
 from repro_torch.core.units import UnitMap
 from repro_torch.core.wire import CompressionConfig, PackedPayload
 
@@ -14,6 +16,7 @@ __all__ = ["aggregation", "comm", "compress", "selection", "units", "wire",
            "aggregate_stacked", "fedavg_stacked", "stacked_psum_finalize",
            "streaming_add",
            "streaming_finalize", "streaming_init", "unit_weights",
-           "CommMeter", "round_comm", "full_participation",
+           "CommMeter", "round_comm", "bernoulli_per_layer",
+           "client_dropout", "full_participation", "random_per_layer",
            "topn_divergence", "UnitMap", "CompressionConfig",
            "PackedPayload"]

@@ -54,12 +54,13 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
         unit_bytes = umap.unit_bytes_tensor(dev) * scale
     payload = torch.sum(selection.double()
                         * unit_bytes.double()[None, :]).float()
-    feedback = torch.tensor(
-        k * umap.num_units * DIVERGENCE_SCALAR_BYTES if divergence_feedback
-        else 0.0, dtype=torch.float32, device=dev)
-    fedavg_up = (torch.tensor(k, dtype=torch.float32, device=dev)
-                 * torch.tensor(umap.total_bytes, dtype=torch.float32,
-                                device=dev))
+    # constants are filled on the device (no host copy, no sync)
+    feedback = torch.full(
+        (), k * umap.num_units * DIVERGENCE_SCALAR_BYTES
+        if divergence_feedback else 0.0, dtype=torch.float32, device=dev)
+    fedavg_up = (torch.full((), k, dtype=torch.float32, device=dev)
+                 * torch.full((), umap.total_bytes, dtype=torch.float32,
+                              device=dev))
     uplink = payload + feedback
     return {
         "uplink_payload": payload,

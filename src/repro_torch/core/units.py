@@ -36,6 +36,18 @@ def tree_leaves(tree: Pytree) -> list[torch.Tensor]:
     return [tree]
 
 
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` (a host tensor) on ``device`` without holding the host: a CUDA
+    copy goes through pinned memory with ``non_blocking=True``, which
+    neither synchronises the stream nor waits for the work queued on it (a
+    copy from pageable memory does). The caching host allocator keeps the
+    pinned buffer until the copy has run."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
     """``fn`` applied leafwise over nested dicts of the same structure."""
     if isinstance(tree, dict):
@@ -109,8 +121,12 @@ class UnitMap:
 
     # ------------------------------------------------------------------
     def unit_bytes_tensor(self, device) -> torch.Tensor:
-        return torch.tensor(self.unit_bytes, dtype=torch.float32,
-                            device=device)
+        return host_to_device(torch.tensor(self.unit_bytes,
+                                           dtype=torch.float32), device)
+
+    def unit_params_tensor(self, device) -> torch.Tensor:
+        return host_to_device(torch.tensor(self.unit_params,
+                                           dtype=torch.float32), device)
 
     # ------------------------------------------------------------------
     def sq_divergence(self, params: Pytree, ref: Pytree,

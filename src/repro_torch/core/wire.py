@@ -142,8 +142,7 @@ class PackedPayload:
         ``ceil(params·bits/8) + UNIT_HEADER_BYTES``. This — not f32 unit
         sizes — is what :func:`~repro_torch.core.comm.round_comm` charges
         for a packed upload."""
-        p = torch.tensor(umap.unit_params, dtype=torch.float32,
-                         device=self.bits.device)
+        p = umap.unit_params_tensor(self.bits.device)
         return torch.ceil(p * self.bits / 8.0) + UNIT_HEADER_BYTES
 
 
@@ -269,13 +268,12 @@ def allocate_bits(divs: torch.Tensor, umap: UnitMap, *,
     parameter-weighted mean stays within ``avg_bits``; widths are floored
     to integers, which can only land the budget lower.
     """
-    p = torch.tensor(umap.unit_params, dtype=torch.float32,
-                     device=divs.device)
+    p = umap.unit_params_tensor(divs.device)
     d = divs.float()
     d = torch.mean(d * d, dim=0) if d.ndim == 2 else d * d
     r = 0.5 * torch.log2(torch.clamp(d / torch.clamp(p, min=1.0), min=_EPS))
-    lo = torch.tensor(float(min_bits), device=divs.device) - torch.max(r)
-    hi = torch.tensor(float(max_bits), device=divs.device) - torch.min(r)
+    lo = torch.full((), float(min_bits), device=divs.device) - torch.max(r)
+    hi = torch.full((), float(max_bits), device=divs.device) - torch.min(r)
     psum = torch.sum(p)
 
     def mean_bits(lam):

@@ -1,16 +1,39 @@
-"""Federated runtime: ClientUpdate + ServerExecute (Algorithm 1)."""
+"""Federated runtime: ClientUpdate + ServerExecute (Algorithm 1).
+
+Algorithms are strategy plugins — see
+:mod:`repro_torch.federated.strategies`. ``ALGOS`` is a live view of the
+registry (module ``__getattr__``), so ``register_strategy`` additions
+appear here.
+"""
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.client import make_local_update, plain_sgd_client
-from repro_torch.federated.sampling import sample_clients
+from repro_torch.federated.sampling import (KeyedDraws, round_generators,
+                                            sample_clients,
+                                            sample_clients_torch)
 from repro_torch.federated.server import (FLConfig, TrainLog, build_round_fn,
                                           build_round_scan, build_round_vmap,
-                                          run_training)
-from repro_torch.federated.strategies import (FLStrategy, make_strategy,
+                                          run_training, run_training_scan)
+from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
+                                              FedLPOptions, FLStrategy,
+                                              QuantizedUpload, make_strategy,
                                               register_strategy,
+                                              registered_algos,
+                                              strategy_registry,
                                               unregister_strategy)
+from repro_torch.launch.sharding import init_residual_store
 
-__all__ = ["CompressionConfig", "make_local_update", "plain_sgd_client",
-           "sample_clients", "FLConfig", "TrainLog", "build_round_fn",
-           "build_round_scan", "build_round_vmap", "run_training",
-           "FLStrategy", "make_strategy", "register_strategy",
+__all__ = ["ALGOS", "CompressionConfig", "make_local_update",
+           "plain_sgd_client", "KeyedDraws", "round_generators",
+           "sample_clients", "sample_clients_torch", "FLConfig", "TrainLog",
+           "build_round_fn", "build_round_scan", "build_round_vmap",
+           "run_training", "run_training_scan", "FLStrategy",
+           "FedADPOptions", "FedLAMAOptions", "FedLPOptions",
+           "QuantizedUpload", "init_residual_store", "make_strategy",
+           "register_strategy", "registered_algos", "strategy_registry",
            "unregister_strategy"]
+
+
+def __getattr__(name):   # PEP 562: ALGOS tracks the live strategy registry
+    if name == "ALGOS":
+        return registered_algos()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

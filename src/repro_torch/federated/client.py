@@ -8,7 +8,7 @@ client batch), built on ``torch.func.grad_and_value``, so K clients train
 stacked under ``torch.func.vmap(local_update, in_dims=(None, 0))`` as under
 ``jax.vmap`` in the reference, and the scan round can recompute a client's
 local model exactly. ``remat`` and trainable partitions wait for their
-slices (ROADMAP Queue 1, items 7 and 10).
+slice (ROADMAP Queue 1, item 10).
 
 Local training runs its convolutions through PyTorch's own CUDA
 convolution (im2col + cuBLAS GEMM), not cuDNN. cuDNN picks its algorithms

@@ -1,5 +1,5 @@
-"""ServerExecute (paper Algorithm 1) — round builders + the host driver,
-port of ``repro.federated.server``.
+"""ServerExecute (paper Algorithm 1) — round builders and the two
+multi-round drivers, port of ``repro.federated.server``.
 
 Two per-round execution modes give the same aggregation semantics:
 
@@ -13,7 +13,9 @@ Two per-round execution modes give the same aggregation semantics:
   passes of deterministic local training (phase 1: divergence only;
   phase 2: recompute and stream the selected layers into an f32
   accumulator through the ``masked_accumulate`` kernel, one launch a
-  client over all its leaves). Memory is O(1) clients.
+  client over all its leaves). Memory is O(1) clients. A strategy whose
+  aggregation is not Eq. 5 (FedADP) instead has its sequentially trained
+  locals stacked and handed to its ``aggregate`` hook.
 
 ``FLConfig(compression=CompressionConfig(...))`` quantizes every uploaded
 layer into int8 or int4 levels plus a per-unit scale, with optional
@@ -22,10 +24,27 @@ through the fused uplink kernels (``strategy.uplink_round``), or through
 the legacy unfused chain with ``CompressionConfig(fused=False)``. The scan
 round refuses compression, as the reference's does.
 
-:func:`run_training` is the host-loop driver with the reference's numpy
-("host") sampler, so one seed gives the same clients and batches as
-``repro.federated.run_training(sampler="host")``. It threads strategy
-state across rounds (the error-feedback residual store is one).
+Two multi-round drivers share those round functions:
+
+- :func:`run_training` — the host loop: one Python iteration and one host
+  pull a round. ``sampler="host"`` is the reference's numpy stream (one
+  seed, the same clients and batches as the reference's host sampler);
+  ``sampler="device"`` is the engine's keyed streams and device gather, so
+  one seed gives :func:`run_training_scan`'s trajectory.
+- :func:`run_training_scan` — the device-resident engine: the dataset
+  lives on the device as :class:`~repro_torch.data.ClientShards`, a block
+  of rounds (the rounds between two evaluations) issues device work only,
+  with the block's draws copied to the device once at its start, and the
+  per-round losses and cumulative uplink come back in one host pull a
+  block. The reference's compiled ``lax.scan`` becomes a Python loop that
+  enqueues; there is no CUDA graph and no compiled-callable cache yet
+  (ROADMAP Queue 1).
+
+Both drivers thread strategy state across rounds (the error-feedback
+residual store, FedLAMA's intervals) and resume: ``start_round=<rounds
+done>`` with ``server_state=<log.final_state>`` continues a run; with the
+keyed streams (a pure function of the seed and the absolute round index)
+the continuation is bit-identical to a run that never stopped.
 
 Numerics: the round builders switch TF32 off for cuDNN convolutions and
 CUDA matmuls (``torch.backends.cudnn.allow_tf32`` and
@@ -34,15 +53,13 @@ default for convolutions, keeps about three decimal digits; the port holds
 its rounds to the f32 reference, and Eq. 4 ranks the Eq. 3 values, so the
 rounds run in full f32.
 
-Not yet ported (ROADMAP Queue 1): the device-resident multi-round engine
-``run_training_scan``, the JAX-key sampler, the compiled-callable cache,
-resume (``start_round``/``server_state``), mesh sharding, the deprecated
-flat ``quantize_bits``/``error_feedback`` knobs, trainable partitions and
-telemetry.
+Not yet ported (ROADMAP Queue 1): the JAX-key sampler, mesh sharding,
+trainable partitions and telemetry.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -50,14 +67,36 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
-from repro_torch.core.units import UnitMap, tree_map, tree_stack_index
+from repro_torch.core.units import (UnitMap, host_to_device, tree_map,
+                                    tree_stack_index)
 from repro_torch.core.wire import CompressionConfig
+from repro_torch.data.device import ClientShards
 from repro_torch.federated.client import make_local_update
-from repro_torch.federated.sampling import sample_clients
-from repro_torch.federated.strategies import get_strategy_cls, make_strategy
+from repro_torch.federated.sampling import KeyedDraws, sample_clients
+from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
+                                              FedLPOptions, get_strategy_cls,
+                                              make_strategy,
+                                              registered_algos)
 from repro_torch.optim.opt import Optimizer, sgd
 
 Pytree = Any
+
+
+def __getattr__(name):   # PEP 562: ALGOS is a live view of the registry
+    if name == "ALGOS":
+        return registered_algos()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+# deprecated flat FLConfig fields -> (owning algo, options field); the
+# normalization shim in FLConfig.__post_init__ folds non-default values
+# into algo_options and mirrors the normalized options back
+_DEPRECATED_ALGO_FIELDS = (
+    ("fedadp_keep", "fedadp", "keep"),
+    ("fedlp_p", "fedlp", "p"),
+    ("fedlama_tau", "fedlama", "tau"),
+    ("fedlama_lam", "fedlama", "lam"),
+)
 
 # Raised when compression=CompressionConfig(...) meets the sequential-client
 # scan round; word for word the reference's message.
@@ -79,15 +118,126 @@ class FLConfig:
     local_steps: int = 1
     lr: float = 0.05
     mode: str = "vmap"             # vmap | scan
+    # per-strategy knobs: FedADPOptions | FedLPOptions | FedLAMAOptions |
+    # a plugin strategy's declared options_cls. None resolves to the
+    # strategy's defaults (or to the deprecated flat fields below).
+    algo_options: Optional[Any] = None
     # uplink compression policy (repro_torch.core.wire.CompressionConfig):
     # packed quantized uploads + optional error feedback + divergence-driven
     # bit allocation (bits="auto"). None = f32 uploads.
     compression: Optional[CompressionConfig] = None
     batch_per_client: int = 32
+    # ---- deprecated flat knobs (warn and fold into algo_options /
+    # compression; kept as mirrors of the normalized values) ----
+    fedadp_keep: float = 0.2       # FedADP keep fraction
+    fedlp_p: float = 0.5           # FedLP per-layer keep probability
+    fedlama_tau: int = 2           # FedLAMA base aggregation interval τ'
+    fedlama_lam: int = 2           # FedLAMA long-interval multiplier λ
+    quantize_bits: int = 0         # quantized delta upload (0 = off)
+    error_feedback: bool = False
+
+    # ------------------------------------------------------------------
+    def _normalize_algo_options(self, scls):
+        """Fold the deprecated flat per-algo knobs into ``algo_options``
+        (validated by the owning options classes) and mirror the
+        normalized options back onto the flat names, so equivalent
+        spellings compare equal."""
+        defaults = {f.name: f.default
+                    for f in dataclasses.fields(type(self))}
+        flat_set = [name for name, _, _ in _DEPRECATED_ALGO_FIELDS
+                    if getattr(self, name) != defaults[name]]
+        # the flat values are validated whatever the algo: constructing
+        # the options classes raises ValueError on bad values
+        legacy = {
+            "fedadp": FedADPOptions(keep=self.fedadp_keep),
+            "fedlp": FedLPOptions(p=self.fedlp_p),
+            "fedlama": FedLAMAOptions(tau=self.fedlama_tau,
+                                      lam=self.fedlama_lam),
+        }
+        opts = self.algo_options
+        if opts is not None:
+            ocls = getattr(scls, "options_cls", None)
+            if ocls is None:
+                raise TypeError(
+                    f"strategy {self.algo!r} declares no options class; "
+                    f"got algo_options={opts!r}")
+            if not isinstance(opts, ocls):
+                raise TypeError(
+                    f"algo_options for strategy {self.algo!r} must be "
+                    f"{ocls.__name__}, got {type(opts).__name__}")
+            # a flat field that disagrees with the options instance is a
+            # conflict; agreeing values (the mirrors dataclasses.replace
+            # round-trips) are fine
+            for name, algo, field in _DEPRECATED_ALGO_FIELDS:
+                if algo != self.algo or name not in flat_set:
+                    continue
+                if getattr(self, name) != getattr(opts, field):
+                    raise ValueError(
+                        f"FLConfig.{name}={getattr(self, name)} conflicts "
+                        f"with algo_options.{field}="
+                        f"{getattr(opts, field)}; pass one spelling, "
+                        "not both")
+        else:
+            if flat_set:
+                warnings.warn(
+                    f"FLConfig fields {flat_set} are deprecated; pass "
+                    "algo_options=FedADPOptions/FedLPOptions/"
+                    "FedLAMAOptions(...) instead",
+                    DeprecationWarning, stacklevel=3)
+            opts = legacy.get(self.algo)
+            if opts is None and getattr(scls, "options_cls", None):
+                opts = scls.options_cls()
+            object.__setattr__(self, "algo_options", opts)
+        for name, algo, field in _DEPRECATED_ALGO_FIELDS:
+            if algo == self.algo and opts is not None:
+                object.__setattr__(self, name, getattr(opts, field))
+
+    def _normalize_compression(self, scls):
+        """Fold the deprecated ``quantize_bits``/``error_feedback`` flats
+        into ``compression`` and mirror back."""
+        comp = self.compression
+        if comp is not None:
+            if not isinstance(comp, CompressionConfig):
+                raise TypeError(
+                    "FLConfig.compression must be a repro_torch.core.wire."
+                    f"CompressionConfig or None, got {type(comp)}")
+            # disagreement (not mere presence) is the conflict, so the
+            # mirrored flats survive dataclasses.replace round-trips
+            mirror_qb = 0 if comp.is_auto else int(comp.bits)
+            if self.quantize_bits not in (0, mirror_qb) or \
+                    (self.error_feedback and not comp.error_feedback):
+                raise ValueError(
+                    "FLConfig.quantize_bits/error_feedback conflict with "
+                    "compression=CompressionConfig(...); pass one "
+                    "spelling, not both")
+        else:
+            if self.error_feedback and not self.quantize_bits > 0:
+                # the reference asserts here; same exception type
+                raise AssertionError("error feedback needs quantization")
+            if self.quantize_bits:
+                warnings.warn(
+                    "FLConfig(quantize_bits=..., error_feedback=...) is "
+                    "deprecated; pass compression=CompressionConfig("
+                    "bits=..., error_feedback=...) instead",
+                    DeprecationWarning, stacklevel=3)
+                comp = CompressionConfig(
+                    bits=int(self.quantize_bits),
+                    error_feedback=self.error_feedback)
+                object.__setattr__(self, "compression", comp)
+        if comp is not None:
+            # mirror: the flat int shows the effective width (0 for the
+            # adaptive allocator, whose width is per-round)
+            object.__setattr__(self, "quantize_bits",
+                               0 if comp.is_auto else int(comp.bits))
+            object.__setattr__(self, "error_feedback", comp.error_feedback)
+        if comp is not None and not scls.supports_quantize:
+            raise ValueError(
+                f"strategy {self.algo!r} declares supports_quantize=False "
+                "(fedadp aggregates pruned neurons, not quantized deltas)")
 
     def __post_init__(self):
-        # unknown algos raise ValueError; reference algos not ported yet
-        # raise NotImplementedError
+        # unknown algos raise ValueError listing the registered names;
+        # capability flags replace engine special cases
         scls = get_strategy_cls(self.algo)
         if self.mode not in ("vmap", "scan"):
             raise ValueError(f"FLConfig.mode must be 'vmap' or 'scan', got "
@@ -95,19 +245,13 @@ class FLConfig:
         if not 1 <= self.top_n <= self.clients_per_round:
             raise ValueError(f"top_n={self.top_n} out of range for "
                              f"K={self.clients_per_round}")
-        comp = self.compression
-        if comp is not None and not isinstance(comp, CompressionConfig):
-            raise TypeError(
-                "FLConfig.compression must be a repro_torch.core.wire."
-                f"CompressionConfig or None, got {type(comp)}")
-        if comp is not None and not scls.supports_quantize:
-            raise ValueError(
-                f"strategy {self.algo!r} declares supports_quantize=False")
+        self._normalize_algo_options(scls)
+        self._normalize_compression(scls)
         if self.mode == "scan":
             if not scls.supports_scan:
                 raise ValueError(
                     f"strategy {self.algo!r} declares supports_scan=False")
-            if comp is not None:
+            if self.compression is not None:
                 raise NotImplementedError(_SCAN_COMPRESSION_MSG)
 
 
@@ -123,11 +267,13 @@ def _full_fp32() -> None:
 def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
                      opt: Optimizer | None = None):
     """Round function with parallel (stacked) clients:
-    ``round_fn(params, batch, data_sizes, state=None) -> (new_params,
-    metrics)`` with batch leaves ``(K, B, ...)`` and ``metrics`` holding
-    ``loss``, ``comm``, ``selection``, ``divergence`` (the (K, U) Eq. 3
-    matrix, or None), ``wire`` (the packed payload's accounting, or None)
-    and, when a ``state`` is given, the updated ``state``.
+    ``round_fn(params, batch, data_sizes, state=None, uniform=None) ->
+    (new_params, metrics)`` with batch leaves ``(K, B, ...)`` and
+    ``metrics`` holding ``loss``, ``comm``, ``selection``, ``divergence``
+    (the (K, U) Eq. 3 matrix, or None), ``wire`` (the packed payload's
+    accounting, or None) and, when a ``state`` is given, the updated
+    ``state``. ``uniform(shape)`` is the round's algorithm stream (the
+    reference's per-round key), which the random policies draw from.
 
     With error feedback ``state`` is required: its client entry
     ``"residual"`` holds the participants' (K, ...) residual rows (see
@@ -140,13 +286,13 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     k = flcfg.clients_per_round
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
-                 state: Optional[dict] = None):
+                 state: Optional[dict] = None, uniform=None):
         locals_, losses = train_clients(params, batch)
-        # Eq. 3 on the client-stacked locals: one launch per leaf
+        # Eq. 3 on the client-stacked locals: one call over every leaf
         divs = (umap.divergence(locals_, params)
                 if strategy.needs_divergence else None)
         selection = strategy.select_with_state(
-            state, divs, None, k, umap.num_units, flcfg.top_n,
+            state, divs, uniform, k, umap.num_units, flcfg.top_n,
             data_sizes.device)
         res_rows = None
         if strategy.tracks_residuals:
@@ -196,7 +342,7 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
                    "wire": wire}
         if state is not None:
             metrics["state"] = strategy.update_state(state, selection, divs,
-                                                     umap)
+                                                     umap, uniform=uniform)
         return new_params, metrics
 
     return round_fn
@@ -207,11 +353,13 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
     """Round function with sequential clients + two-phase recompute; same
     signature and metrics as :func:`build_round_vmap`.
 
-    Memory: O(global + 1 local + 1 accumulator) models, independent of K —
-    selected layers are streamed into the Eq. 5 accumulator as each client
-    trains. Only Eq. 5 strategies (``eq5_weighted``) are supported so far;
-    the reference's stacked phase 2 for other aggregations waits for FedADP
-    (ROADMAP Queue 1, item 6).
+    Memory (``eq5_weighted`` strategies): O(global + 1 local + 1
+    accumulator) models, independent of K — selected layers are streamed
+    into the Eq. 5 accumulator as each client trains. A strategy whose
+    aggregation is not an Eq. 5 weighted mean (FedADP's element-wise neuron
+    masks) instead has its sequentially trained locals stacked and fed to
+    the same :meth:`FLStrategy.aggregate` hook as in vmap mode: O(K)
+    parameter memory, still O(1) activation memory.
     """
     if flcfg.compression is not None:
         raise NotImplementedError(_SCAN_COMPRESSION_MSG)
@@ -220,16 +368,12 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
     if not strategy.supports_scan:
         raise NotImplementedError(
             f"strategy {strategy.name!r} declares supports_scan=False")
-    if not strategy.eq5_weighted:
-        raise NotImplementedError(
-            f"strategy {strategy.name!r} is not Eq. 5-weighted; its scan "
-            "round is not ported yet (ROADMAP Queue 1, item 6)")
     local_update = make_local_update(loss_fn, opt or sgd(flcfg.lr),
                                      flcfg.local_steps)
     k = flcfg.clients_per_round
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
-                 state: Optional[dict] = None):
+                 state: Optional[dict] = None, uniform=None):
         client_batches = [{name: v[i] for name, v in batch.items()}
                           for i in range(k)]
         # ---- phase 1: divergence feedback (only if the policy needs it)
@@ -243,20 +387,34 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
             divs, losses1 = torch.stack(rows), torch.stack(losses1)
 
         selection = strategy.select_with_state(
-            state, divs, None, k, umap.num_units, flcfg.top_n,
+            state, divs, uniform, k, umap.num_units, flcfg.top_n,
             data_sizes.device)
-        w, denom = agg.unit_weights(selection, data_sizes)
-        frac = w / torch.where(denom > 0, denom,
-                               torch.ones_like(denom))[None, :]   # (K, U)
 
-        # ---- phase 2: recompute local training, stream layers in
-        acc = agg.streaming_init(params)
         losses2 = []
-        for batch_k, frac_k in zip(client_batches, frac):
-            local, loss = local_update(params, batch_k)
-            agg.streaming_add(acc, local, umap, frac_k)
-            losses2.append(loss)
-        new_params = agg.streaming_finalize(acc, umap, denom, params)
+        if strategy.eq5_weighted:
+            w, denom = agg.unit_weights(selection, data_sizes)
+            frac = w / torch.where(denom > 0, denom,
+                                   torch.ones_like(denom))[None, :]  # (K,U)
+
+            # ---- phase 2: recompute local training, stream layers in
+            acc = agg.streaming_init(params)
+            for batch_k, frac_k in zip(client_batches, frac):
+                local, loss = local_update(params, batch_k)
+                agg.streaming_add(acc, local, umap, frac_k)
+                losses2.append(loss)
+            new_params = agg.streaming_finalize(acc, umap, denom, params)
+        else:
+            # ---- phase 2 (not Eq. 5, e.g. FedADP): train one after
+            # another, stack the locals, and call the same stacked-clients
+            # aggregate hook as the vmap round
+            locals_ = []
+            for batch_k in client_batches:
+                local, loss = local_update(params, batch_k)
+                locals_.append(local)
+                losses2.append(loss)
+            stacked = tree_map(lambda *ls: torch.stack(ls), *locals_)
+            new_params = strategy.aggregate(stacked, umap, selection,
+                                            data_sizes, params)
 
         loss = (losses1 if losses1 is not None
                 else torch.stack(losses2)).mean()
@@ -265,7 +423,7 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
                    "selection": selection, "divergence": divs}
         if state is not None:
             metrics["state"] = strategy.update_state(state, selection, divs,
-                                                     umap)
+                                                     umap, uniform=uniform)
         return new_params, metrics
 
     return round_fn
@@ -279,7 +437,7 @@ def build_round_fn(loss_fn, umap: UnitMap, flcfg: FLConfig,
 
 
 # ======================================================================
-# Multi-round driver
+# Multi-round drivers
 # ======================================================================
 @dataclasses.dataclass
 class TrainLog:
@@ -289,20 +447,24 @@ class TrainLog:
     uplink_mb: list = dataclasses.field(default_factory=list)
     meter: comm_mod.CommMeter = dataclasses.field(
         default_factory=comm_mod.CommMeter)
-    # strategy state after the last round (None for stateless strategies)
+    # strategy state after the last round (None for stateless strategies);
+    # feed it back as run_training*(server_state=...) with
+    # start_round=<rounds done> to continue a run (checkpoint it with
+    # repro_torch.checkpoint.save_server_state)
     final_state: Optional[dict] = None
 
 
 # Strategy state is ``{"client": {name: (N, ...) store}, "global": {name:
 # tree}}`` or None (see FLStrategy.init_state). The helpers below are the
-# only state plumbing run_training needs; the EF residual store is just the
+# only state plumbing the drivers need; the EF residual store is just the
 # client entry named "residual" that the quantize wrapper declares.
 def _scatter_rows(store: Pytree, clients: torch.Tensor,
                   rows: Pytree) -> Pytree:
     """Write the participants' rows back into the (N, ...) store **in
-    place** (run_training owns the store; a functional copy would move the
-    whole N × model store every round). The explicit cast keeps each
-    leaf's own dtype: the EF arithmetic runs in f32."""
+    place** (the driver owns the store: it copies a caller's
+    ``server_state`` once at entry; a functional copy would move the whole
+    N × model store every round). The explicit cast keeps each leaf's own
+    dtype: the EF arithmetic runs in f32."""
     def put(full, r):
         full[clients] = r.to(full.dtype)
         return full
@@ -332,60 +494,276 @@ def _state_scatter(state: Optional[dict], new_state: dict,
     return out
 
 
+def _initial_state(strategy, params: Pytree, flcfg: FLConfig,
+                   server_state: Optional[dict], device) -> Optional[dict]:
+    """The state the first round sees: ``server_state`` copied once onto
+    ``device`` (the drivers write client rows in place, and must not
+    change a caller's tensors, e.g. a checkpoint still held), or the
+    strategy's fresh ``init_state``."""
+    if server_state is None:
+        return strategy.init_state(params, flcfg.num_clients)
+    return tree_map(lambda l: torch.as_tensor(l).to(device, copy=True),
+                    server_state)
+
+
+def _step(round_fn, params: Pytree, state: Optional[dict], batch: dict,
+          sizes: torch.Tensor, clients: torch.Tensor, rd, device):
+    """One round of either driver: the participants' state rows in, the
+    round, the rows scattered back; ``rd`` gives the algorithm stream."""
+    uniform = _round_uniform(rd, device)
+    if state is None:
+        params, metrics = round_fn(params, batch, sizes, uniform=uniform)
+        return params, None, metrics
+    params, metrics = round_fn(params, batch, sizes,
+                               _state_round_view(state, clients), uniform)
+    return params, _state_scatter(state, metrics["state"], clients), metrics
+
+
+def _round_uniform(rd, device) -> Callable:
+    """The round's algorithm stream on ``device``: ``rd.uniform`` draws on
+    the CPU, and the copy goes through pinned memory (no sync)."""
+    def uniform(shape):
+        return host_to_device(rd.uniform(shape).float(), device)
+    return uniform
+
+
+def _progress(t: int, loss: float, test_error: Optional[float] = None,
+              uplink_bytes: Optional[float] = None) -> None:
+    """``verbose=True`` progress line, in the reference's ProgressSink
+    "human" format (the sink itself is ROADMAP Queue 1, item 8)."""
+    if test_error is not None:
+        print(f"round {t:4d} loss {loss:.4f} test_err {test_error:.4f} "
+              f"uplink {uplink_bytes / 1e6:.1f}MB")
+    else:
+        print(f"round {t:4d} loss {loss:.4f}")
+
+
+def _device_shards(fldata, device) -> ClientShards:
+    shards = (fldata if isinstance(fldata, ClientShards)
+              else ClientShards.from_federated(fldata))
+    return shards.to(device)
+
+
 def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
                  rounds: int,
                  eval_fn: Optional[Callable[[Pytree], float]] = None,
                  eval_every: int = 10, seed: int = 0,
-                 sampler: str = "host", device="cuda"
+                 verbose: bool = False,
+                 sampler: str = "host",
+                 start_round: int = 0,
+                 server_state: Optional[dict] = None,
+                 device="cuda", *, draws=None
                  ) -> tuple[Pytree, TrainLog]:
     """Full FL training loop (paper Algorithm 1 ServerExecute), host-driven.
 
-    One Python iteration per round: numpy client sampling and batch
-    gathering from ``fldata`` (a :class:`~repro_torch.data.FederatedData`)
-    with the reference's ``sampler="host"`` stream, a round on ``device``
-    (the card unless the caller asks for ``"cpu"``), and one host pull of
-    the loss and comm stats. ``params`` are moved to ``device``.
+    One Python iteration and one host pull (the loss) a round, on
+    ``device`` (the card unless the caller asks for ``"cpu"``); ``params``
+    are moved there. ``sampler`` picks the streams:
 
-    Strategy state (the error-feedback residual store, any
-    :meth:`FLStrategy.init_state` schema) is declared once and threaded
-    through the rounds: client-entry rows are gathered before a round and
-    scattered back after, and the final state lands in
-    ``log.final_state``. The reference's ``sampler="jax"`` key schedule
-    and its resume arguments are still to be ported (ROADMAP Queue 1,
-    item 7).
+    - ``"host"`` (default): numpy client sampling and batch gathering from
+      ``fldata`` (a :class:`~repro_torch.data.FederatedData`), the
+      reference's ``sampler="host"`` stream; the random policies draw from
+      the keyed algorithm stream of ``(seed, t)``;
+    - ``"device"``: the engine's keyed streams (clients, sample indices,
+      algorithm uniforms) and its device gather from
+      :class:`~repro_torch.data.ClientShards` (``fldata`` may be either),
+      so one seed gives :func:`run_training_scan`'s trajectory bit for bit.
+
+    ``draws`` (keyword-only) replaces the keyed streams: a callable ``t ->``
+    round draws with ``clients``, ``indices`` and ``uniform`` (see
+    :class:`~repro_torch.federated.sampling.KeyedDraws`); with the host
+    sampler only its ``uniform`` is used. The reference's
+    ``sampler="jax"`` (JAX's threefry streams) is not reproduced.
+
+    Strategy state is declared once and threaded through the rounds;
+    client-entry rows are gathered before a round and scattered back
+    after, and the final state lands in ``log.final_state``. To resume,
+    pass ``start_round=<rounds done>`` and ``server_state=<saved state>``:
+    with the keyed streams the continuation is bit-identical to the
+    uninterrupted run (the host sampler's sequential numpy stream is not
+    resumable).
     """
-    if sampler != "host":
+    if sampler == "jax":
         raise NotImplementedError(
-            f"sampler={sampler!r} is not ported yet (ROADMAP Queue 1, "
-            "item 7); the port has the reference's 'host' sampler")
+            "sampler='jax' is not ported (ROADMAP Queue 1, item 7): JAX's "
+            "threefry streams are not reproduced in torch. Use the port's "
+            "keyed streams (sampler='device') or the reference's numpy "
+            "stream (sampler='host')")
+    if sampler not in ("host", "device"):
+        raise ValueError(f"sampler must be 'host' or 'device', got "
+                         f"{sampler!r}")
+    device = torch.device(device)
     params = tree_map(lambda l: l.to(device), params)
     umap = UnitMap.build(params)
     round_fn = build_round_fn(loss_fn, umap, flcfg)
-    state = make_strategy(flcfg).init_state(params, flcfg.num_clients)
+    strategy = make_strategy(flcfg)
+    state = _initial_state(strategy, params, flcfg, server_state, device)
+    draws = draws if draws is not None else KeyedDraws(seed)
+    n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
+                  flcfg.batch_per_client)
+    if sampler == "device":
+        shards = _device_shards(fldata, device)
+        host_sizes = shards.part_sizes.cpu()
+        all_sizes = shards.data_sizes()
+    else:
+        rng = np.random.default_rng(seed)
+        host_all_sizes = fldata.data_sizes()
     log = TrainLog()
-    rng = np.random.default_rng(seed)
-    all_sizes = fldata.data_sizes()
-    for t in range(rounds):
-        clients = sample_clients(rng, flcfg.num_clients,
-                                 flcfg.clients_per_round)
-        batch = fldata.round_batch(clients, flcfg.batch_per_client, rng)
-        batch = {name: torch.from_numpy(v).to(device)
-                 for name, v in batch.items()}
-        sizes = torch.from_numpy(all_sizes[clients]).to(device)
-        if state is not None:
-            idx = torch.from_numpy(clients).to(device)
-            params, metrics = round_fn(params, batch, sizes,
-                                       _state_round_view(state, idx))
-            state = _state_scatter(state, metrics["state"], idx)
+    last = start_round + rounds - 1
+    for t in range(start_round, start_round + rounds):
+        rd = draws(t)
+        if sampler == "device":
+            clients = rd.clients(n_, k_).to(torch.int64)
+            j = rd.indices(host_sizes[clients], b_)
+            idx = host_to_device(clients, device)
+            batch = shards.gather(idx, host_to_device(j, device))
+            sizes = all_sizes[idx]
         else:
-            params, metrics = round_fn(params, batch, sizes)
+            clients = sample_clients(rng, n_, k_)
+            batch = fldata.round_batch(clients, b_, rng)
+            batch = {name: torch.from_numpy(v).to(device)
+                     for name, v in batch.items()}
+            sizes = torch.from_numpy(host_all_sizes[clients]).to(device)
+            idx = torch.from_numpy(clients).to(device)
+        params, state, metrics = _step(round_fn, params, state, batch, sizes,
+                                       idx, rd, device)
         log.meter.update(metrics["comm"])
         log.rounds.append(t)
         loss_t = float(metrics["loss"])     # device sync
         log.losses.append(loss_t)
         log.uplink_mb.append(log.meter.uplink_bytes / 1e6)
-        if eval_fn is not None and (t % eval_every == 0 or t == rounds - 1):
+        if eval_fn is not None and (t % eval_every == 0 or t == last):
             err = float(eval_fn(params))
             log.test_errors.append((t, err, log.meter.uplink_bytes))
+            if verbose:
+                _progress(t, loss_t, err, log.meter.uplink_bytes)
+        elif verbose and t % 10 == 0:
+            _progress(t, loss_t)
     log.final_state = state
+    return params, log
+
+
+# ======================================================================
+# Device-resident multi-round engine
+# ======================================================================
+def _eval_cuts(rounds: int, eval_every: int, do_eval: bool) -> list[int]:
+    """Block boundaries: cut after round t iff the host driver would eval
+    there (t % eval_every == 0 or t == rounds-1); one block when not
+    evaluating."""
+    if not do_eval:
+        return [rounds]
+    return sorted({t + 1 for t in range(rounds)
+                   if t % eval_every == 0 or t == rounds - 1})
+
+
+def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
+    """Multi-round block: ``run_block(carry, shards, all_sizes, host_sizes,
+    draws, t0, num) -> (carry, per_round)`` advances the carry (params,
+    strategy state, comm accumulator) by ``num`` rounds from the absolute
+    round ``t0``, issuing device work only: the block's participants and
+    sample indices are drawn on the host (``host_sizes`` is the CPU copy of
+    ``shards.part_sizes``) and copied to the device once, through pinned
+    memory; nothing in the loop synchronises. ``per_round`` holds the
+    (num,) device tensors ``loss`` and ``uplink_bytes`` (cumulative, f32,
+    as the reference's scan carry); a stateless strategy carries ``None``.
+    """
+    round_fn = build_round_fn(loss_fn, umap, flcfg)
+    n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
+                  flcfg.batch_per_client)
+
+    def run_block(carry, shards: ClientShards, all_sizes: torch.Tensor,
+                  host_sizes: torch.Tensor, draws, t0: int, num: int):
+        params, state, acc = carry
+        device = all_sizes.device
+        rds = [draws(t) for t in range(t0, t0 + num)]
+        clients = torch.stack([rd.clients(n_, k_).to(torch.int64)
+                               for rd in rds])                  # (num, K)
+        j = torch.stack([rd.indices(host_sizes[c], b_).to(torch.int64)
+                         for rd, c in zip(rds, clients)])       # (num, K, B)
+        # one copy of the whole block's draws
+        drawn = host_to_device(torch.cat([clients.reshape(-1),
+                                          j.reshape(-1)]), device)
+        clients_d = drawn[:clients.numel()].view(clients.shape)
+        j_d = drawn[clients.numel():].view(j.shape)
+        losses = torch.empty(num, dtype=torch.float32, device=device)
+        uplink = torch.empty(num, dtype=torch.float32, device=device)
+        for i, rd in enumerate(rds):
+            idx = clients_d[i]
+            params, state, metrics = _step(
+                round_fn, params, state, shards.gather(idx, j_d[i]),
+                all_sizes[idx], idx, rd, device)
+            acc = comm_mod.comm_acc_update(acc, metrics["comm"])
+            losses[i] = metrics["loss"]
+            uplink[i] = acc["uplink_bytes"]
+        return (params, state, acc), {"loss": losses, "uplink_bytes": uplink}
+
+    return run_block
+
+
+def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
+                      rounds: int,
+                      eval_fn: Optional[Callable[[Pytree], float]] = None,
+                      eval_every: int = 10, seed: int = 0,
+                      verbose: bool = False,
+                      start_round: int = 0,
+                      server_state: Optional[dict] = None,
+                      device="cuda", *, draws=None
+                      ) -> tuple[Pytree, TrainLog]:
+    """Device-resident FL training, one block of rounds between two
+    evaluations at a time.
+
+    Client sampling, round-batch gathering from device-resident
+    :class:`~repro_torch.data.ClientShards`, local training, selection,
+    aggregation, communication accounting and strategy state updates (EF
+    residuals, FedLAMA intervals, …) are enqueued on ``device`` (the card
+    unless the caller asks for ``"cpu"``) without a host sync; the
+    per-round losses and cumulative uplink come back in one host pull a
+    block, and ``log.meter`` from the device accumulator at the end.
+
+    ``fldata`` may be a :class:`~repro_torch.data.FederatedData` (copied to
+    the device once) or prebuilt ``ClientShards``. Same seed ⇒ the same
+    trajectory as ``run_training(sampler="device")``, bit for bit.
+    ``draws`` (keyword-only) replaces the keyed streams, as there.
+
+    Resume: round ``t``'s draws are a pure function of ``(seed, t)`` with
+    ``t`` the absolute round index, so ``start_round=<rounds done>,
+    server_state=<log.final_state or a loaded checkpoint>`` continues a run
+    bit-identically to one that never stopped. ``server_state`` is copied
+    once at entry; the caller's tensors are not written.
+    """
+    device = torch.device(device)
+    params = tree_map(lambda l: l.to(device), params)
+    umap = UnitMap.build(params)
+    shards = _device_shards(fldata, device)
+    run_block = _build_block_fn(loss_fn, umap, flcfg)
+    strategy = make_strategy(flcfg)
+    state0 = _initial_state(strategy, params, flcfg, server_state, device)
+    carry = (params, state0, comm_mod.comm_acc_init(device))
+    all_sizes = shards.data_sizes()
+    host_sizes = shards.part_sizes.cpu()
+    draws = draws if draws is not None else KeyedDraws(seed)
+    log = TrainLog()
+    t0 = 0
+    for cut in _eval_cuts(rounds, eval_every, eval_fn is not None):
+        num = cut - t0
+        carry, per_round = run_block(carry, shards, all_sizes, host_sizes,
+                                     draws, start_round + t0, num)
+        # the block's one host pull
+        losses, uplink = torch.stack([per_round["loss"],
+                                      per_round["uplink_bytes"]]).cpu()
+        log.rounds.extend(range(start_round + t0, start_round + cut))
+        log.losses.extend(float(x) for x in losses)
+        log.uplink_mb.extend(float(u) / 1e6 for u in uplink)
+        t_last = start_round + cut - 1
+        if eval_fn is not None:
+            err = float(eval_fn(carry[0]))
+            log.test_errors.append((t_last, err, float(uplink[-1])))
+            if verbose:
+                _progress(t_last, float(losses[-1]), err, float(uplink[-1]))
+        elif verbose:
+            _progress(t_last, float(losses[-1]))
+        t0 = cut
+    params, final_state, acc = carry
+    log.meter = comm_mod.CommMeter.from_accumulator(acc)
+    log.final_state = final_state
     return params, log

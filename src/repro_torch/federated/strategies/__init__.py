@@ -6,12 +6,20 @@ hook contract.
 from repro_torch.federated.strategies.base import (FLStrategy,
                                                    get_strategy_cls,
                                                    register_strategy,
+                                                   registered_algos,
+                                                   strategy_registry,
                                                    unregister_strategy)
 from repro_torch.federated.strategies import builtin  # noqa: F401 (registers)
+from repro_torch.federated.strategies import fedlama  # noqa: F401 (registers)
+from repro_torch.federated.strategies.builtin import (FedADPOptions,
+                                                      FedLPOptions)
 from repro_torch.federated.strategies.compression import QuantizedUpload
+from repro_torch.federated.strategies.fedlama import FedLAMAOptions
 
-__all__ = ["FLStrategy", "QuantizedUpload", "get_strategy_cls",
-           "make_strategy", "register_strategy", "unregister_strategy"]
+__all__ = ["FLStrategy", "FedADPOptions", "FedLAMAOptions", "FedLPOptions",
+           "QuantizedUpload", "get_strategy_cls", "make_strategy",
+           "register_strategy", "registered_algos", "strategy_registry",
+           "unregister_strategy"]
 
 
 def make_strategy(flcfg) -> FLStrategy:

@@ -5,16 +5,19 @@ An :class:`FLStrategy` packages what is algorithm-specific about a
 federated round behind a fixed set of hooks, so the round builders in
 :mod:`repro_torch.federated.server` share one round body:
 
-- ``select(divs, generator, k, u, n, device) -> (K, U) float32 selection
+- ``select(divs, uniform, k, u, n, device) -> (K, U) float32 selection
   matrix`` on ``device`` — which (client, layer-unit) pairs are uploaded
   and aggregated. ``divs`` is the (K, U) divergence matrix when
-  :attr:`needs_divergence` is set, else ``None``. ``generator`` is
-  reserved for the random policies, which are still to be ported.
-- ``select_with_state(state, divs, generator, k, u, n, device)`` — the
+  :attr:`needs_divergence` is set, else ``None``. ``uniform`` is the
+  round's algorithm stream, ``uniform(shape) -> f32 tensor in [0, 1)`` on
+  ``device`` (the reference's per-round algorithm key; the same stream in
+  both modes), or ``None`` when the caller gave the round none; the random
+  policies draw from it.
+- ``select_with_state(state, divs, uniform, k, u, n, device)`` — the
   engines' entry point; the default ignores ``state`` and calls
   ``select``.
-- ``update_state(state, selection, divs, umap) -> state`` — the per-round
-  state transition (identity by default).
+- ``update_state(state, selection, divs, umap, uniform=None) -> state`` —
+  the per-round state transition (identity by default).
 - ``aggregate(uploads, umap, selection, data_sizes, global_params)`` — the
   server-side reduction over client-stacked uploads; the default is Eq. 5.
 - ``psum_finalize(parts, denom, umap, params, fallback)`` — the epilogue
@@ -42,11 +45,17 @@ axis, and run_training hands the round the participants' rows only. The
 error-feedback residual store is the client entry ``"residual"`` that the
 quantize wrapper declares.
 
+Per-strategy knobs: a strategy declares an :attr:`options_cls` dataclass;
+``FLConfig(algo_options=...)`` carries an instance, resolved by
+:meth:`FLStrategy.resolve_options` into ``self.opts``.
+
 Capability flags read by ``FLConfig`` and the engines:
 
 - ``needs_divergence`` — the engine computes the Eq. 3 divergence matrix
   (and accounts its feedback uplink) before calling ``select``.
-- ``supports_scan`` — the strategy can run under ``mode="scan"``.
+- ``supports_scan`` — the strategy can run under ``mode="scan"``:
+  streamed through the Eq. 5 accumulator when ``eq5_weighted``, else with
+  the sequentially trained locals stacked for :meth:`aggregate`.
 - ``supports_quantize`` — the quantize(+EF) wrapper may be composed on top
   (``FLConfig(compression=CompressionConfig(...))``).
 - ``eq5_weighted`` — aggregation is exactly Eq. 5 over the selection
@@ -70,16 +79,14 @@ from repro_torch.core.units import UnitMap
 
 Pytree = Any
 
-# Registered in the reference but not ported yet: asking for one of these
-# names is a NotImplementedError, not an unknown-algorithm ValueError.
-NOT_YET_PORTED = ("random", "hdfl", "fedadp", "fedlp", "fedlama")
-
-
 class FLStrategy:
     """Base strategy: Eq. 5 aggregation over a subclass-chosen selection."""
 
     # registry name; filled in by @register_strategy
     name: str = "?"
+    # per-strategy options dataclass accepted through
+    # FLConfig(algo_options=...); None = no knobs beyond FLConfig's own
+    options_cls: Optional[type] = None
     # ---- capability flags (see module docstring) ----
     needs_divergence: bool = False
     supports_scan: bool = True
@@ -92,25 +99,44 @@ class FLStrategy:
 
     def __init__(self, cfg):
         self.cfg = cfg   # the FLConfig (strategies read knobs from it)
+        self.opts = self.resolve_options(cfg)
+
+    @classmethod
+    def resolve_options(cls, cfg):
+        """The strategy's options instance for ``cfg``: ``cfg.algo_options``
+        (``FLConfig`` has already folded the deprecated flat knobs in), or
+        the defaults for a cfg without one. ``None`` when the strategy
+        declares no :attr:`options_cls`."""
+        if cls.options_cls is None:
+            return None
+        opts = getattr(cfg, "algo_options", None)
+        if opts is None:
+            return cls.options_cls()
+        if not isinstance(opts, cls.options_cls):
+            raise TypeError(
+                f"algo_options for strategy {cls.name!r} must be "
+                f"{cls.options_cls.__name__}, got {type(opts).__name__}")
+        return opts
 
     def init_state(self, params: Pytree, num_clients: int) -> Optional[dict]:
         """Declare cross-round state; ``None`` (default) is stateless."""
         return None
 
     def select_with_state(self, state: Optional[dict],
-                          divs: Optional[torch.Tensor], generator, k: int,
+                          divs: Optional[torch.Tensor], uniform, k: int,
                           u: int, n: int, device) -> torch.Tensor:
         """State-aware selection — the engines' actual entry point. The
         default ignores ``state`` and delegates to :meth:`select`."""
-        return self.select(divs, generator, k, u, n, device)
+        return self.select(divs, uniform, k, u, n, device)
 
     def update_state(self, state: Optional[dict], selection: torch.Tensor,
-                     divs: Optional[torch.Tensor],
-                     umap: UnitMap) -> Optional[dict]:
-        """Per-round state transition (identity by default)."""
+                     divs: Optional[torch.Tensor], umap: UnitMap,
+                     uniform=None) -> Optional[dict]:
+        """Per-round state transition (identity by default); runs once a
+        round, after aggregation, and keeps every leaf's shape and dtype."""
         return state
 
-    def select(self, divs: Optional[torch.Tensor], generator, k: int, u: int,
+    def select(self, divs: Optional[torch.Tensor], uniform, k: int, u: int,
                n: int, device) -> torch.Tensor:
         raise NotImplementedError
 
@@ -164,19 +190,24 @@ class FLStrategy:
 _REGISTRY: dict[str, type[FLStrategy]] = {}
 
 
-def register_strategy(name: str):
+def register_strategy(name: str, *, override: bool = False):
     """Class decorator: make ``FLConfig(algo=name)`` resolve to this
-    strategy. Registering a taken name with a different class raises;
-    re-registering the same class is a no-op."""
+    strategy (and list it in ``ALGOS``).
+
+    Registering a name taken by a *different* class raises (a plugin
+    silently replacing e.g. the ``fedavg`` baseline would corrupt every
+    savings-vs-fedavg comparison); pass ``override=True`` to replace it on
+    purpose. Re-registering the same class is a no-op."""
 
     def deco(cls: type[FLStrategy]) -> type[FLStrategy]:
         if not (isinstance(cls, type) and issubclass(cls, FLStrategy)):
             raise TypeError(f"{cls!r} is not an FLStrategy subclass")
         existing = _REGISTRY.get(name)
-        if existing is not None and existing is not cls:
+        if existing is not None and existing is not cls and not override:
             raise ValueError(
                 f"strategy name {name!r} is already registered to "
-                f"{existing.__name__}; unregister_strategy it first")
+                f"{existing.__name__}; pass register_strategy(name, "
+                "override=True) to replace it")
         cls.name = name
         _REGISTRY[name] = cls
         return cls
@@ -189,15 +220,19 @@ def unregister_strategy(name: str) -> None:
     _REGISTRY.pop(name, None)
 
 
+def registered_algos() -> tuple[str, ...]:
+    """Registered algorithm names, in registration order."""
+    return tuple(_REGISTRY)
+
+
+def strategy_registry() -> dict[str, type[FLStrategy]]:
+    return dict(_REGISTRY)
+
+
 def get_strategy_cls(name: str) -> type[FLStrategy]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"FL algorithm {name!r} is not ported to PyTorch yet "
-                "(ROADMAP Queue 1, item 6); ported: "
-                f"{', '.join(_REGISTRY)}") from None
         raise ValueError(
             f"unknown FL algorithm {name!r}; registered strategies: "
             f"{', '.join(sorted(_REGISTRY)) or '(none)'}") from None

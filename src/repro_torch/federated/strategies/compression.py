@@ -92,20 +92,21 @@ class QuantizedUpload(FLStrategy):
             state["client"] = client
         return state
 
-    def select_with_state(self, state, divs, generator, k, u, n, device):
-        return self.inner.select_with_state(state, divs, generator, k, u, n,
+    def select_with_state(self, state, divs, uniform, k, u, n, device):
+        return self.inner.select_with_state(state, divs, uniform, k, u, n,
                                             device)
 
-    def update_state(self, state, selection, divs, umap):
+    def update_state(self, state, selection, divs, umap, uniform=None):
         # the engine already advanced the "residual" rows (through the
         # packed uplink or update_residual); the inner strategy's
         # transition must keep entries it does not own (the default
         # identity does)
-        return self.inner.update_state(state, selection, divs, umap)
+        return self.inner.update_state(state, selection, divs, umap,
+                                       uniform=uniform)
 
     # ---- delegated hooks ----
-    def select(self, divs, generator, k, u, n, device):
-        return self.inner.select(divs, generator, k, u, n, device)
+    def select(self, divs, uniform, k, u, n, device):
+        return self.inner.select(divs, uniform, k, u, n, device)
 
     def aggregate(self, uploads, umap, selection, data_sizes, global_params):
         return self.inner.aggregate(uploads, umap, selection, data_sizes,
@@ -268,8 +269,7 @@ class QuantizedUpload(FLStrategy):
             # unit_bytes_override)
             b = (float(self.comp.avg_bits) if self.comp.is_auto
                  else float(int(self.comp.bits)))
-            p = torch.tensor(umap.unit_params, dtype=torch.float32,
-                             device=selection.device)
+            p = umap.unit_params_tensor(selection.device)
             unit_bytes_override = (torch.ceil(p * b / 8.0)
                                    + wire_mod.UNIT_HEADER_BYTES)
         return self.inner.comm_profile(

@@ -1,7 +1,8 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions,
-a round on the card against the same round on the CPU, and the serving path
-through the flash-attention kernels (all three routes: tensor-core prefill,
-split-KV decode, CUDA cores).
+a round on the card against the same round on the CPU, the multi-round
+engine (against the CPU engine, no host sync in a block, resume bit for
+bit), and the serving path through the flash-attention kernels (all three
+routes: tensor-core prefill, split-KV decode, CUDA cores).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -19,9 +20,12 @@ import numpy as np  # noqa: E402
 from repro_torch.core.units import UnitMap, tree_leaves, tree_map  # noqa: E402
 from repro_torch.data import (FederatedData, iid_partition,  # noqa: E402
                               make_image_dataset)
+from repro_torch.core.comm import comm_acc_init  # noqa: E402
+from repro_torch.data import ClientShards  # noqa: E402
 from repro_torch.federated import (CompressionConfig, FLConfig,  # noqa: E402
-                                   build_round_fn, make_strategy,
-                                   run_training)
+                                   KeyedDraws, build_round_fn, make_strategy,
+                                   run_training, run_training_scan)
+from repro_torch.federated import server as fl_server  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import aggregate as tka  # noqa: E402
 from repro_torch.kernels import divergence as tkd  # noqa: E402
@@ -601,6 +605,124 @@ def test_cuda_run_training_launches_kernels(cuda):
     assert len(log.losses) == 2 and np.isfinite(log.losses).all()
     # scan mode: one launch over the leaf table a client and round
     assert ops.launch_counts()["masked_accumulate"] == 2 * 5
+
+
+# ----------------------------------------------------------------------
+# the device-resident engine on the card
+# ----------------------------------------------------------------------
+ENGINE_CASES = {
+    "fedldf_vmap": dict(),
+    "fedldf_scan": dict(mode="scan"),
+    "int8_ef": dict(compression=CompressionConfig(bits=8,
+                                                  error_feedback=True)),
+    "fedlama": dict(algo="fedlama"),
+    "random": dict(algo="random"),
+    "fedadp_scan": dict(algo="fedadp", mode="scan"),
+}
+
+
+def _engine_task():
+    train, _ = make_image_dataset(num_train=200, num_test=8, seed=0)
+    data = FederatedData(train.xs, train.ys, iid_partition(train.ys, 10))
+    params = cnn.init_params(CFG, torch.Generator().manual_seed(0), "cpu")
+    return params, data
+
+
+def _engine_fl(case):
+    return FLConfig(num_clients=10, clients_per_round=5, top_n=2,
+                    batch_per_client=8, **ENGINE_CASES[case])
+
+
+def _loss(p, b):
+    return cnn.classify_loss(p, CFG, b)
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_cuda_engine_matches_cpu_engine(cuda, case):
+    """run_training_scan on the card against the same call on the CPU: the
+    keyed streams draw on the CPU, so both see the same clients, batches
+    and uniforms; params within 2e-5 (plus one int8 step with EF), losses
+    within 1e-5, the same uplink."""
+    params, data = _engine_task()
+    fl = _engine_fl(case)
+    pc, lc = run_training_scan(params, _loss, data, fl, rounds=2, seed=3,
+                               device="cpu")
+    pg, lg = run_training_scan(params, _loss, data, fl, rounds=2, seed=3,
+                               device=cuda)
+    np.testing.assert_allclose(lg.losses, lc.losses, atol=1e-5, rtol=0)
+    assert lg.meter.uplink_bytes == pytest.approx(lc.meter.uplink_bytes)
+    atol = EQUIV_TOL
+    if fl.compression is not None:
+        atol += max(float(l.abs().max()) for l in tree_leaves(pc)) / 127.0
+    for a, c in zip(tree_leaves(pg), tree_leaves(pc)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=atol)
+    counts = ops.launch_counts()
+    strat = make_strategy(fl)
+    if strat.needs_divergence:
+        assert counts["sqdiff_rowsum"] == (2 if fl.mode == "vmap" else 10)
+    assert counts["masked_accumulate"] == \
+        (10 if fl.mode == "scan" and strat.eq5_weighted else 0)
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_cuda_engine_block_does_not_sync(cuda, case):
+    """A 2-round block enqueues without one host sync
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on any), and its
+    outputs come back in one pull."""
+    params, data = _engine_task()
+    fl = _engine_fl(case)
+    p = tree_map(lambda l: l.to(cuda), params)
+    shards = ClientShards.from_federated(data).to(cuda)
+    host_sizes, all_sizes = shards.part_sizes.cpu(), shards.data_sizes()
+    run_block = fl_server._build_block_fn(_loss, UnitMap.build(p), fl)
+
+    def carry():
+        return (p, make_strategy(fl).init_state(p, fl.num_clients),
+                comm_acc_init(cuda))
+
+    draws = KeyedDraws(0)
+    run_block(carry(), shards, all_sizes, host_sizes, draws, 0, 2)  # warm
+    c0 = carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (p2, state, acc), per = run_block(c0, shards, all_sizes, host_sizes,
+                                          draws, 0, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    pulled = torch.stack([per["loss"], per["uplink_bytes"]]).cpu()
+    assert pulled.shape == (2, 2) and bool(torch.isfinite(pulled).all())
+    assert float(acc["rounds"]) == 2.0
+
+
+@pytest.mark.parametrize("case", ["fedldf_vmap", "int8_ef", "fedlama"])
+@pytest.mark.parametrize("driver", ["engine", "device_sampler"])
+def test_cuda_resume_is_bit_identical(cuda, case, driver):
+    params, data = _engine_task()
+    fl = _engine_fl(case)
+
+    def run(p, rounds, **kw):
+        if driver == "engine":
+            return run_training_scan(p, _loss, data, fl, rounds=rounds,
+                                     seed=1, device=cuda, **kw)
+        return run_training(p, _loss, data, fl, rounds=rounds, seed=1,
+                            sampler="device", device=cuda, **kw)
+
+    p4, l4 = run(params, 4)
+    p2, l2 = run(params, 2)
+    p_res, l_res = run(p2, 2, start_round=2, server_state=l2.final_state)
+    for a, b in zip(tree_leaves(p_res), tree_leaves(p4)):
+        assert torch.equal(a, b)
+    assert l_res.losses == l4.losses[2:]
+    if l4.final_state is not None:
+        for a, b in zip(tree_leaves(l_res.final_state["client"]
+                                    if "client" in l4.final_state
+                                    else l_res.final_state["global"]),
+                        tree_leaves(l4.final_state["client"]
+                                    if "client" in l4.final_state
+                                    else l4.final_state["global"])):
+            assert torch.equal(a, b)
 
 
 # tests/test_flash_kernel.py CASES: (bh, bkv, sq, skv, hd, causal, window)

@@ -257,8 +257,6 @@ def test_vgg9_config_matches_reference():
 
 @pytest.mark.parametrize("kwargs,exc", [
     ({"algo": "nope"}, ValueError),
-    ({"algo": "random"}, NotImplementedError),
-    ({"algo": "fedlama"}, NotImplementedError),
     ({"mode": "pmap"}, ValueError),
     ({"top_n": 0}, ValueError),
     ({"top_n": 21}, ValueError),
@@ -280,7 +278,7 @@ def test_round_threads_strategy_state(params, round_inputs, mode):
     with the round and comes back updated, in both modes."""
 
     class CountingFedLDF(FedLDF):
-        def update_state(self, state, selection, divs, umap):
+        def update_state(self, state, selection, divs, umap, uniform=None):
             return {"count": state["count"] + selection.sum(0)}
 
     register_strategy("counting_fedldf")(CountingFedLDF)
