@@ -76,7 +76,24 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
 12. each of the 7 registered algorithms for 2 rounds through the engine
    (vmap), plus fedadp and fedldf in scan mode: launches a round from the
    strategy's flags, uplink bytes against ``run_training(sampler=
-   "device")`` and, where it is fixed, the formula.
+   "device")`` and, where it is fixed, the formula;
+13. federated LoRA fine-tuning of full-width, full-depth qwen3-1.7b
+   (random bf16 weights, rank-8 adapters on every attention and MLP
+   projection, ``lora_partition``; 8 clients by domain over 320 synthetic
+   128-token sequences, K=4, n=2, B=4, fedldf): the partition's sizes;
+   ``run_training_scan`` for 2 rounds in vmap, scan and setting A (int8 +
+   EF) with the frozen base the start's own tensors, unchanged, the
+   adapters moved, exact uplink bytes a round and the launches a round
+   the round builders make (every bf16 attention launch on the
+   tensor-core route); a client's local step twice, bit for bit (the scan
+   round's recompute); in f32 one round through the kernel against the
+   same round through the plain attention under autograd, against scan
+   mode and against ``remat_blocks`` (identical selection, divergence
+   within 3e-3, adapters within 2e-5), with peak memory;
+   ``FlashAttentionFn``'s gradients at one layer's training shape against
+   autograd of the plain version (1e-4 f32, 2e-2 bf16 of max |grad|) and
+   its forward and backward times beside SDPA's; each mode's round
+   wall-clock and device idle share.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -146,6 +163,17 @@ SERVE_RTOL = 1e-3           # of max |logit|
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+# phase 13: federated LoRA fine-tuning of full-width qwen3-1.7b
+LORA_ARCH = "qwen3-1.7b"
+LORA_RANK, LORA_SEED = 8, 1          # inject_lora rank and generator seed
+LORA_SEQS, LORA_SEQ_LEN, LORA_TRAIN = 352, 128, 320  # 32 eval sequences
+LORA_N, LORA_K, LORA_TOP_N, LORA_B, LORA_B32 = 8, 4, 2, 4, 2
+# trainable params, bytes (bf16), units, unit bytes, leaves
+LORA_TRAINABLE = (8_716_288, 17_432_576, 28, {622_592}, 14)
+# uplink bytes a round: fedldf n·U·622,592 + K·U·4, and int8 + EF
+# n·U·(311,296 + 5) + K·U·4
+LORA_UPLINK = (34_865_600, 17_433_304)
+APPLY_CALLS = 2000          # calls a turn when timing the host enqueue
 SLEEP_CYCLES = 10_000_000   # ~5 ms of GPU spin: the host enqueues meanwhile
 
 
@@ -176,7 +204,8 @@ def main():
     from repro_torch.core.comm import comm_acc_init
     from repro_torch.data import (ClientShards, FederatedData, iid_partition,
                                   make_image_dataset)
-    from repro_torch.federated import (ALGOS, CompressionConfig, KeyedDraws,
+    from repro_torch.federated import (ALGOS, CompressionConfig, FLConfig,
+                                       KeyedDraws,
                                        build_round_scan, build_round_vmap,
                                        make_local_update, make_strategy,
                                        run_training, run_training_scan,
@@ -1684,12 +1713,358 @@ def main():
         del p_e, p_h
     del shards, test_batch, data_e, train_e
 
+    # ---- 13. federated LoRA fine-tuning of full-width qwen3-1.7b ---------
+    from repro_torch.core.partition import partition_counts
+    from repro_torch.data import lm_federated, make_lm_dataset
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    from repro_torch.models.lora import inject_lora, lora_partition
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    cfg_l = get_config(LORA_ARCH)
+    layers_l = cfg_l.num_layers
+
+    def lora_model(cfg):
+        base = tf.init_params(cfg, gen_w.manual_seed(SEED), dev)
+        p = inject_lora(base, LORA_RANK, torch.Generator(
+            device=dev).manual_seed(LORA_SEED))
+        return p, lora_partition(p)
+
+    params_l, part_l = lora_model(cfg_l)
+    cnt = partition_counts(part_l, params_l)
+    train_l, frozen_l = part_l.split(params_l)
+    umap_l = UnitMap.build(train_l)
+    n_leaves = len(tree_leaves(train_l))
+    # cfg.param_count() leaves out the norm scales (ln1, ln2, q_norm,
+    # k_norm a layer and the final norm); the frozen tree holds them
+    norms = layers_l * (2 * cfg_l.d_model + 2 * cfg_l.hd) + cfg_l.d_model
+    full_bytes = cnt["trainable_bytes"] + cnt["frozen_bytes"]
+    say(f"[lora] {cfg_l.name} {cfg_l.param_dtype}, rank {LORA_RANK} on wq "
+        f"wk wv wo w_gate w_up w_down: trainable {cnt['trainable_params']:,}"
+        f" params = {cnt['trainable_bytes']:,} B in {umap_l.num_units} units"
+        f" of {umap_l.unit_bytes[0]:,} B and {n_leaves} leaves; frozen "
+        f"{cnt['frozen_params']:,} params = {cnt['frozen_bytes']:,} B "
+        f"(cfg.param_count() {cfg_l.param_count():,} + {norms:,} norm "
+        f"scales); init {time.perf_counter() - t13:.2f} s")
+    if (cnt["trainable_params"], cnt["trainable_bytes"], umap_l.num_units,
+            set(umap_l.unit_bytes), n_leaves) != LORA_TRAINABLE or \
+            cnt["frozen_params"] != cfg_l.param_count() + norms or \
+            cnt["frozen_bytes"] != 2 * cnt["frozen_params"]:
+        fail(f"lora: partition sizes {cnt}, {umap_l.num_units} units of "
+             f"{set(umap_l.unit_bytes)} B, {n_leaves} leaves; expected "
+             f"{LORA_TRAINABLE} and cfg.param_count() + norms frozen")
+    tokens_l, domains_l = make_lm_dataset(
+        num_sequences=LORA_SEQS, seq_len=LORA_SEQ_LEN + 1,
+        vocab=cfg_l.vocab_size, num_domains=8, seed=SEED)
+    data_l = lm_federated(tokens_l[:LORA_TRAIN], domains_l[:LORA_TRAIN],
+                          LORA_N)
+    shards_l = ClientShards.from_federated(data_l).to(dev)
+    if shards_l.xs.dtype != torch.int32 or shards_l.ys.dtype != torch.int32:
+        fail(f"lora: ClientShards carry {shards_l.xs.dtype} tokens and "
+             f"{shards_l.ys.dtype} labels, expected int32")
+    eval_l = {"tokens": torch.from_numpy(tokens_l[LORA_TRAIN:, :-1]).to(dev),
+              "labels": torch.from_numpy(tokens_l[LORA_TRAIN:, 1:]).to(dev)}
+    fl_lv = FLConfig(algo="fedldf", num_clients=LORA_N,
+                     clients_per_round=LORA_K, top_n=LORA_TOP_N,
+                     batch_per_client=LORA_B, lr=0.05, partition=part_l)
+    lora_fl = {"vmap": fl_lv,
+               "scan": dataclasses.replace(fl_lv, mode="scan"),
+               "A": dataclasses.replace(fl_lv, compression=CompressionConfig(
+                   bits=8, error_feedback=True))}
+    loss_l = tf.make_lm_loss(cfg_l)
+    k_l, u_l = LORA_K, umap_l.num_units
+    # launches a round, from the round builders: the vmap round trains the
+    # K clients in one vmapped local step (one flash_attention launch a
+    # layer) and scores them in one Eq. 3 call; the scan round trains
+    # each client twice (phase 1 and the phase-2 recompute) and scores and
+    # accumulates it once; setting A adds one fused EF uplink a round
+    want_l = {
+        "vmap": {"sqdiff_rowsum": 1, "flash_attention": layers_l,
+                 "flash_attention_tc": layers_l},
+        "scan": {"sqdiff_rowsum": k_l, "masked_accumulate": k_l,
+                 "flash_attention": 2 * k_l * layers_l,
+                 "flash_attention_tc": 2 * k_l * layers_l},
+        "A": {"sqdiff_rowsum": 1, "fused_uplink_ef": 1,
+              "flash_attention": layers_l, "flash_attention_tc": layers_l}}
+    per_unit_int8 = [math.ceil(p_ * 8 / 8) + UNIT_HEADER_BYTES
+                     for p_ in umap_l.unit_params]
+    want_up_l = {"vmap": LORA_TOP_N * umap_l.total_bytes + k_l * u_l * 4,
+                 "A": LORA_TOP_N * sum(per_unit_int8) + k_l * u_l * 4}
+    want_up_l["scan"] = want_up_l["vmap"]
+    fedavg_full = k_l * full_bytes
+    if (want_up_l["vmap"], want_up_l["A"]) != LORA_UPLINK:
+        fail(f"lora: uplink formula {want_up_l}, expected {LORA_UPLINK}")
+    # the frozen base's bits, kept on the host (a copy on the card would
+    # add 4 GB to every peak printed below)
+    frozen_copy = [l.cpu() for l in tree_leaves(frozen_l)]
+    say(f"[setup] lora: {LORA_TRAIN} sequences of {LORA_SEQ_LEN} tokens "
+        f"over {LORA_N} clients (by domain), {LORA_SEQS - LORA_TRAIN} eval "
+        f"sequences; K={k_l}, n={LORA_TOP_N}, B={LORA_B} "
+        f"({k_l * LORA_B * LORA_SEQ_LEN} training tokens a round); "
+        f"{time.perf_counter() - t13:.2f} s")
+
+    def eval_lm(p):
+        with torch.no_grad():
+            return float(tf.lm_loss(p, cfg_l, eval_l))
+
+    def peak_from(held):
+        """Peak device memory since the reset, and above what was held
+        (``held``: allocated at the reset, earlier phases' tensors too)."""
+        peak = torch.cuda.max_memory_allocated()
+        return (f"peak {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} "
+                f"GiB above the {held / 2**30:.2f} GiB held before)",
+                peak - held)
+
+    def lora_run(fl, rounds=2):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        p, log = run_training_scan(params_l, loss_l, shards_l, fl,
+                                   rounds=rounds, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        return (p, log, ops.launch_counts(), time.perf_counter() - t,
+                peak_from(held)[0])
+
+    eval0 = eval_lm(params_l)
+    lora_counts, lora_t = {}, {}
+    for label, fl in lora_fl.items():
+        p, log, c, wall, peak = lora_run(fl)
+        per = {n_: v_ / 2 for n_, v_ in c.items() if v_}
+        lora_counts[label] = c
+        tr_p, fz_p = part_l.split(p)
+        frozen_same = all(a is b and torch.equal(a.cpu(), c_) for a, b, c_
+                          in zip(tree_leaves(fz_p), tree_leaves(frozen_l),
+                                 frozen_copy))
+        moved = max_diff(tr_p, train_l)
+        marks = [0.0] + [u * 1e6 for u in log.uplink_mb]
+        deltas = [b - a for a, b in zip(marks, marks[1:])]
+        eval_t = eval_lm(p) if label == "vmap" else None
+        say(f"[lora {label}] run_training_scan 2 rounds: {wall:.3f} s, "
+            f"{peak}; losses {log.losses}"
+            + ("" if eval_t is None else
+               f"; eval loss {eval0:.4f} -> {eval_t:.4f}")
+            + f"; launches a round {per} (want {want_l[label]}); uplink "
+            f"{[round(d_, 1) for d_ in deltas]} B a round, "
+            f"{log.meter.uplink_bytes:.0f} B in all (want "
+            f"{want_up_l[label]:,} a round; full-model FedAvg "
+            f"{fedavg_full:,} B, {fedavg_full / want_up_l[label]:.1f}x); "
+            f"frozen leaves the start's tensors, unchanged: {frozen_same}; "
+            f"adapters moved by up to {moved:.3e}")
+        if not all(np.isfinite(log.losses)) or len(log.losses) != 2 or \
+                per != want_l[label] or not frozen_same or moved == 0.0 or \
+                log.meter.uplink_bytes != 2 * want_up_l[label] or \
+                any(abs(d_ - want_up_l[label]) > 0.5 for d_ in deltas):
+            fail(f"lora {label}: the fine-tuning run is not as expected")
+        del p, tr_p, fz_p
+    # the scan round's phase-2 recompute gives phase 1's local, bit for bit
+    lu = make_local_update(loss_l, sgd(fl_lv.lr), 1, partition=part_l)
+    j0 = torch.arange(LORA_B, device=dev)[None, :]
+    batch_k = {n_: v_[0] for n_, v_ in shards_l.gather(
+        torch.zeros(1, dtype=torch.int64, device=dev), j0).items()}
+    (a1, l1), (a2, l2) = (lu(train_l, batch_k, frozen_l) for _ in range(2))
+    same12 = torch.equal(l1, l2) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a1), tree_leaves(a2)))
+    say(f"[lora scan] a client's local step twice at the same shapes: "
+        f"bit for bit {same12} (the phase-2 recompute equals phase 1)")
+    if not same12:
+        fail("lora scan: the phase-2 recompute differs from phase 1")
+    del a1, a2, frozen_copy
+    say(f"[lora] checks in bf16: {time.perf_counter() - t13:.1f} s")
+    # round wall-clock and the device's busy share of one round
+    from torch.profiler import ProfilerActivity, profile
+    for label, fl in lora_fl.items():
+        t_round = statistics.median(lora_run(fl, rounds=1)[3] * 1e3
+                                    for _ in range(3))
+        torch.cuda.synchronize()
+        # the card's activity only: tracing every host op of a host-paced
+        # round costs minutes and does not change the device's busy time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_training_scan(params_l, loss_l, shards_l, fl, rounds=1,
+                              seed=SEED, device=dev)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        lora_t[label] = (t_round, busy, 1.0 - busy / t_round)
+        say(f"[lora {label}] timed and profiled: "
+            f"{time.perf_counter() - t13:.1f} s")
+    del params_l, train_l, frozen_l, shards_l, eval_l, prof
+    torch.cuda.empty_cache()
+    say(f"[lora] bf16 times: {time.perf_counter() - t13:.1f} s")
+
+    # f32: the round through the kernel against the plain attention under
+    # autograd, vmap against scan, remat_blocks against none
+    cfg_l32 = dataclasses.replace(cfg_l, param_dtype="float32",
+                                  compute_dtype="float32")
+    params32, part32 = lora_model(cfg_l32)
+    tr32, fz32 = part32.split(params32)
+    umap32 = UnitMap.build(tr32)
+    fl32 = dataclasses.replace(fl_lv, batch_per_client=LORA_B32,
+                               partition=part32)
+    rb = data_l.round_batch(np.arange(LORA_K), LORA_B32,
+                            np.random.default_rng(SEED))
+    batch32 = {n_: torch.from_numpy(v_).to(dev) for n_, v_ in rb.items()}
+    sizes32 = torch.from_numpy(data_l.data_sizes()[:LORA_K].astype(
+        np.float32)).to(dev)
+
+    def round32(cfg, mode="vmap", plain=False):
+        fl = dataclasses.replace(fl32, mode=mode)
+        loss = tf.make_lm_loss(
+            cfg, flash_attention=kref.flash_attention if plain else None)
+        build = build_round_vmap if mode == "vmap" else build_round_scan
+        rf = build(loss, umap32, fl)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        new, m = rf(tr32, batch32, sizes32, frozen=fz32)
+        torch.cuda.synchronize()
+        return (new, m, ops.launch_counts()) + peak_from(held)
+
+    r_k = round32(cfg_l32)
+    lora_counts["f32"] = r_k[2]
+    checks32 = {"plain attention (autograd)": round32(cfg_l32, plain=True),
+                "scan": round32(cfg_l32, mode="scan"),
+                "remat_blocks": round32(dataclasses.replace(
+                    cfg_l32, remat_blocks=True))}
+    if r_k[2]["flash_attention_cuda_core"] != layers_l or \
+            r_k[2]["flash_attention"] != layers_l:
+        fail(f"lora f32: flash_attention launches {r_k[2]}, expected "
+             f"{layers_l} on the CUDA-core route")
+    if checks32["plain attention (autograd)"][2]["flash_attention"]:
+        fail("lora f32: the plain round launched the kernel")
+    say(f"[lora f32] one vmap round through the kernel (B={LORA_B32}): "
+        f"selection {r_k[1]['selection'].int().tolist()}, {r_k[3]}")
+    for label, (new, m, c, peak, rise) in checks32.items():
+        d_div = float((m["divergence"] - r_k[1]["divergence"]).abs().max())
+        div_ok = torch.allclose(m["divergence"], r_k[1]["divergence"], **TOL)
+        sel_ok = torch.equal(m["selection"], r_k[1]["selection"])
+        d_p = max_diff(new, r_k[0])
+        say(f"[lora f32] kernel round vs {label}: selection identical "
+            f"{sel_ok}; divergence max_abs_diff {d_div:.3e} (within "
+            f"rtol={TOL['rtol']}: {div_ok}); adapters max_abs_diff "
+            f"{d_p:.3e} (limit {EQUIV_TOL}); {peak}")
+        if not (sel_ok and div_ok and d_p <= EQUIV_TOL):
+            fail(f"lora f32: the kernel round disagrees with {label}")
+        if label == "remat_blocks" and not (
+                rise < r_k[4] and c["flash_attention"] == 2 * layers_l):
+            fail(f"lora f32: remat_blocks rose {rise} B against "
+                 f"{r_k[4]} B without, with {c['flash_attention']} "
+                 f"flash_attention launches (want {2 * layers_l}: the "
+                 f"forward's and the backward's recompute)")
+    del params32, tr32, fz32, r_k, checks32
+    torch.cuda.empty_cache()
+    say(f"[lora] f32 checks: {time.perf_counter() - t13:.1f} s")
+
+    # FlashAttentionFn at one layer's training shape: gradients against
+    # autograd of the plain version, and times beside SDPA's
+    flush = torch.empty(64 * 2**20, device=dev)
+    b_l, h_l, kvh_l, hd_l = (LORA_K * LORA_B, cfg_l.num_heads,
+                             cfg_l.num_kv_heads, cfg_l.hd)
+    s_l = LORA_SEQ_LEN
+    pairs_l = s_l * (s_l + 1) // 2
+    fa_bwd = {}
+    for dn, dt, peak_flops in (("f32", torch.float32, F32_FLOPS),
+                               ("bf16", torch.bfloat16, BF16_FLOPS)):
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=dt)
+                       for shape in ((b_l, s_l, h_l, hd_l),
+                                     (b_l, s_l, kvh_l, hd_l),
+                                     (b_l, s_l, kvh_l, hd_l),
+                                     (b_l, s_l, h_l, hd_l)))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = FlashAttentionFn.apply(*leaves, True, 0, None)
+        got = torch.autograd.grad(out, leaves, do)
+        plain = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_p = kref.flash_attention(*plain, causal=True)
+        want = torch.autograd.grad(out_p, plain, do, retain_graph=True)
+        errs = [float((a.float() - b.float()).abs().max())
+                / float(b.float().abs().max()) for a, b in zip(got, want)]
+        o_d = out.detach()
+        fwd_ms, _ = device_ms(lambda: FlashAttentionFn.apply(q, k, v, True,
+                                                             0, None))
+        bwd_ms, _ = device_ms(lambda: kref.flash_attention_bwd(
+            q, k, v, o_d, do, causal=True))
+        plain_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(
+            out_p, plain, do, retain_graph=True))
+        st = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+        do_t = do.transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out_s = sdpa(*st, is_causal=True, enable_gqa=True)
+        sdpa_fwd_ms, _ = device_ms(lambda: sdpa(
+            *[t.detach() for t in st], is_causal=True, enable_gqa=True))
+        sdpa_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(
+            out_s, st, do_t, retain_graph=True))
+        # least time: read q, k, v, o, dO once, write dq, dk, dv once; five
+        # products of 2·hd operations over each visible (query, key) pair
+        nbytes = 4 * nb(q) + 4 * nb(k)
+        flops = 10 * b_l * h_l * pairs_l * hd_l
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak_flops
+        fa_bwd[dn] = {"ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                      "bound_ms": max(t_b, t_o) * 1e3,
+                      "bound_by": "bytes" if t_b >= t_o else "operations",
+                      "library_ms": sdpa_bwd_ms, "fwd_ms": fwd_ms,
+                      "sdpa_fwd_ms": sdpa_fwd_ms, "max_rel_err": max(errs)}
+        say(f"[lora attention] FlashAttentionFn {dn} at one layer's "
+            f"training shape (B*K={b_l}, S={s_l}, {h_l}/{kvh_l} heads, "
+            f"hd={hd_l}, causal): dq, dk, dv max_abs_err / max|grad| "
+            f"{[f'{e:.3e}' for e in errs]} (limit {FLASH_TOL[dn]}); forward "
+            f"(kernel, {flash_attention.route(dt, s_l, hd_l)} route) "
+            f"{fwd_ms:.4f} ms, backward (plain ops) {bwd_ms:.4f} ms, bound "
+            f"{fa_bwd[dn]['bound_ms']:.4f} ms ({fa_bwd[dn]['bound_by']}), "
+            f"autograd of the plain version {plain_bwd_ms:.4f} ms; "
+            f"scaled_dot_product_attention (enable_gqa) forward "
+            f"{sdpa_fwd_ms:.4f} ms, backward {sdpa_bwd_ms:.4f} ms ({smi})")
+        if max(errs) > FLASH_TOL[dn]:
+            fail(f"FlashAttentionFn {dn}: gradients differ from autograd of "
+                 f"the plain version by {errs}")
+        del q, k, v, do, leaves, out, plain, out_p, st, out_s, got, want
+    del flush
+    # the Function's host cost against the bare launcher at a decode step's
+    # shape, in turns (why attend launches directly without grad mode)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((SERVE_BATCH, 1, h_l, hd_l), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((SERVE_BATCH, SERVE_PROMPT + steps, kvh_l, hd_l),
+                        generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    enq = {"launcher": lambda: flash_attention.flash_attention(
+               q, k, v, causal=False, kv_len=SERVE_PROMPT + 1),
+           "FlashAttentionFn.apply": lambda: FlashAttentionFn.apply(
+               q, k, v, False, 0, SERVE_PROMPT + 1)}
+    enq_us = {n_: [] for n_ in enq}
+    with torch.inference_mode():
+        for n_ in (0, 1, 1, 0, 0, 1, 1, 0):
+            name = list(enq)[n_]
+            torch.cuda.synchronize()
+            h = time.perf_counter()
+            for _ in range(APPLY_CALLS):
+                enq[name]()
+            enq_us[name].append((time.perf_counter() - h)
+                                / APPLY_CALLS * 1e6)
+            torch.cuda.synchronize()
+    say(f"[lora attention] host enqueue a call at a decode step's shape "
+        f"(bf16, kv_len {SERVE_PROMPT + 1}; median of 4 turns of "
+        f"{APPLY_CALLS} calls, turns A B B A): " + "; ".join(
+            f"{n_} {statistics.median(x):.2f} us "
+            f"{[round(y, 2) for y in x]}" for n_, x in enq_us.items())
+        + f" ({smi})")
+    del q, k, v
+    for label, (t_round, busy, idle) in lora_t.items():
+        say(f"[times] lora round wall-clock ({label}, median of 3 calls of "
+            f"1 round, set-up included): {t_round:.3f} ms; device busy "
+            f"under torch.profiler {busy:.3f} ms a round, idle share "
+            f"{idle:.4f} ({smi})")
+    say(f"[lora] phase 13: {time.perf_counter() - t13:.1f} s")
+
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/divergence.cu",
          "replaces": "src/repro/kernels/divergence.py:27",
          "launches": sum(c["sqdiff_rowsum"]
-                         for c in (counts_v, counts_s, counts_a, counts_b)),
+                         for c in (counts_v, counts_s, counts_a, counts_b,
+                                   *lora_counts.values())),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
          "plain_ms": sq_plain, "bound_ms": sq_bound_v, "bound_by": sq_by,
          "library_ms": None},
@@ -1697,7 +2072,8 @@ def main():
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
          "replaces": "src/repro/kernels/aggregate.py:25",
          "launches": (counts_v["masked_accumulate"]
-                      + counts_s["masked_accumulate"]),
+                      + counts_s["masked_accumulate"]
+                      + lora_counts["scan"]["masked_accumulate"]),
          "max_abs_err": main_err["masked_accumulate"], "ms": ma_ms,
          "plain_ms": ma_plain, "bound_ms": ma_bound, "bound_by": ma_by,
          "library_ms": ma_lib},
@@ -1711,13 +2087,19 @@ def main():
         {"name": "fused_uplink_ef", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/uplink.cu",
          "replaces": "src/repro/kernels/uplink.py:117",
-         "launches": counts_a["fused_uplink_ef"],
+         "launches": (counts_a["fused_uplink_ef"]
+                      + lora_counts["A"]["fused_uplink_ef"]),
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},
     ]
     # flash attention a route: the prefill (tensor cores) keeps the
-    # kernel's name; times are one use (28 launches) of the main path
+    # kernel's name; times are one use (28 launches) of the main path;
+    # launches add phase 13's fine-tuning runs (bf16 on the tensor-core
+    # route, f32 on the CUDA cores)
+    for c in lora_counts.values():
+        for route in flash_attention.ROUTES:
+            launches[route] += c[f"flash_attention_{route}"]
     for name, route, source in (
             ("flash_attention", "tc", "flash_attention_tc.cu"),
             ("flash_attention_decode", "decode",

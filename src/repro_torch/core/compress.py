@@ -86,3 +86,9 @@ def compress_upload(local: Pytree, global_params: Pytree, umap: UnitMap,
     theta_hat = tree_map(lambda g, r: (g.float() + r).to(g.dtype),
                          global_params, recon_delta)
     return theta_hat, new_residual
+
+
+def quantized_bytes_per_param(bits: int) -> float:
+    """Payload bytes per parameter (levels only; scales are U floats,
+    negligible) — feeds CommMeter's param_bytes_override."""
+    return bits / 8.0

@@ -5,6 +5,7 @@ Algorithms are strategy plugins — see
 registry (module ``__getattr__``), so ``register_strategy`` additions
 appear here.
 """
+from repro_torch.core.partition import ParamPartition
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.client import make_local_update, plain_sgd_client
 from repro_torch.federated.sampling import (KeyedDraws, round_generators,
@@ -28,9 +29,9 @@ __all__ = ["ALGOS", "CompressionConfig", "make_local_update",
            "build_round_fn", "build_round_scan", "build_round_vmap",
            "run_training", "run_training_scan", "FLStrategy",
            "FedADPOptions", "FedLAMAOptions", "FedLPOptions",
-           "QuantizedUpload", "init_residual_store", "make_strategy",
-           "register_strategy", "registered_algos", "strategy_registry",
-           "unregister_strategy"]
+           "ParamPartition", "QuantizedUpload", "init_residual_store",
+           "make_strategy", "register_strategy", "registered_algos",
+           "strategy_registry", "unregister_strategy"]
 
 
 def __getattr__(name):   # PEP 562: ALGOS tracks the live strategy registry

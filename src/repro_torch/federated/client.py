@@ -7,8 +7,10 @@ model. The update is a pure deterministic function of (global params,
 client batch), built on ``torch.func.grad_and_value``, so K clients train
 stacked under ``torch.func.vmap(local_update, in_dims=(None, 0))`` as under
 ``jax.vmap`` in the reference, and the scan round can recompute a client's
-local model exactly. ``remat`` and trainable partitions wait for their
-slice (ROADMAP Queue 1, item 10).
+local model exactly. With a trainable partition
+(:class:`~repro_torch.core.partition.ParamPartition`) only the trainable
+sub-tree is differentiated, updated and returned; the frozen base is a
+constant of the round.
 
 Local training runs its convolutions through PyTorch's own CUDA
 convolution (im2col + cuBLAS GEMM), not cuDNN. cuDNN picks its algorithms
@@ -25,34 +27,63 @@ way whatever the batch.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 from torch.func import grad_and_value
 
+from repro_torch.core.partition import ParamPartition
 from repro_torch.optim.opt import Optimizer, sgd
 
 Pytree = Any
 LossFn = Callable[[Pytree, dict], torch.Tensor]
 
 
-def make_local_update(loss_fn: LossFn, opt: Optimizer, local_steps: int = 1):
+def make_local_update(loss_fn: LossFn, opt: Optimizer, local_steps: int = 1,
+                      remat: bool = False,
+                      partition: Optional[ParamPartition] = None):
     """Returns local_update(global_params, batch) -> (local_params, mean_loss).
 
     ``batch`` leaves are (b, ...); the same batch is used for every local
     step, as in the reference.
-    """
-    value_and_grad = grad_and_value(loss_fn)
 
-    def local_update(global_params: Pytree, batch: dict):
-        params, ostate = global_params, opt.init(global_params)
+    With a ``partition`` the function is ``local_update(trainable, batch,
+    frozen) -> (local_trainable, mean_loss)``: the loss sees
+    ``partition.merge(trainable, frozen)``, while gradients, optimizer
+    state and the result cover the trainable sub-tree only.
+
+    ``remat`` is accepted for the reference's signature and changes
+    nothing. The reference wraps each local step in ``jax.checkpoint``,
+    which nothing differentiates through, so it moves neither a value nor
+    the gradient's memory there either; the activation-memory lever is
+    ``ModelConfig.remat_blocks`` (a recompute around each block,
+    ``models/transformer.py``).
+    """
+    del remat
+
+    def run(vg, start, batch):
+        params, ostate = start, opt.init(start)
         losses = []
         with _without_cudnn():
             for _ in range(local_steps):
-                grads, loss = value_and_grad(params, batch)
+                grads, loss = vg(params, batch)
                 params, ostate = opt.update(grads, ostate, params)
                 losses.append(loss)
         return params, torch.stack(losses).mean()
+
+    if partition is not None:
+        def local_update_part(trainable: Pytree, batch: dict,
+                              frozen: Pytree):
+            return run(grad_and_value(
+                lambda tr, b: loss_fn(partition.merge(tr, frozen), b)),
+                trainable, batch)
+
+        return local_update_part
+
+    vg = grad_and_value(loss_fn)
+
+    def local_update(global_params: Pytree, batch: dict):
+        return run(vg, global_params, batch)
 
     return local_update
 

@@ -53,8 +53,18 @@ default for convolutions, keeps about three decimal digits; the port holds
 its rounds to the f32 reference, and Eq. 4 ranks the Eq. 3 values, so the
 rounds run in full f32.
 
-Not yet ported (ROADMAP Queue 1): the JAX-key sampler, mesh sharding,
-trainable partitions and telemetry.
+Trainable partitions (``FLConfig(partition=ParamPartition)``, e.g.
+:func:`~repro_torch.models.lora.lora_partition` for adapter fine-tuning):
+both drivers split the params once; the unit map, the strategy state, the
+comm ledger and the EF residual store cover the trainable sub-tree only,
+the frozen base is closed into every local step (``frozen=`` of the round
+and block functions), and the drivers return ``partition.merge(trained,
+frozen)`` with the frozen leaves the caller's own tensors. An
+all-trainable partition gives the rounds of ``partition=None`` bit for
+bit.
+
+Not yet ported (ROADMAP Queue 1): the JAX-key sampler, mesh sharding and
+telemetry.
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
+from repro_torch.core.partition import ParamPartition
 from repro_torch.core.units import (UnitMap, host_to_device, tree_map,
                                     tree_stack_index)
 from repro_torch.core.wire import CompressionConfig
@@ -126,7 +137,15 @@ class FLConfig:
     # packed quantized uploads + optional error feedback + divergence-driven
     # bit allocation (bits="auto"). None = f32 uploads.
     compression: Optional[CompressionConfig] = None
+    # trainable/frozen split (repro_torch.core.partition.ParamPartition):
+    # only the trainable sub-tree is trained, divergence-scored,
+    # communicated and aggregated; the frozen base stays on the device and
+    # is closed over by local training. None = every leaf trainable.
+    partition: Optional[ParamPartition] = None
     batch_per_client: int = 32
+    # the reference's jax.checkpoint around each local step; accepted and
+    # changes nothing (see federated.client.make_local_update)
+    remat: bool = False
     # ---- deprecated flat knobs (warn and fold into algo_options /
     # compression; kept as mirrors of the normalized values) ----
     fedadp_keep: float = 0.2       # FedADP keep fraction
@@ -253,6 +272,11 @@ class FLConfig:
                     f"strategy {self.algo!r} declares supports_scan=False")
             if self.compression is not None:
                 raise NotImplementedError(_SCAN_COMPRESSION_MSG)
+        if self.partition is not None and \
+                not isinstance(self.partition, ParamPartition):
+            raise TypeError(
+                "FLConfig.partition must be a repro_torch.core.partition."
+                f"ParamPartition or None, got {type(self.partition)}")
 
 
 def _full_fp32() -> None:
@@ -277,17 +301,20 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
 
     With error feedback ``state`` is required: its client entry
     ``"residual"`` holds the participants' (K, ...) residual rows (see
-    :func:`run_training`)."""
+    :func:`run_training`). With ``flcfg.partition``, ``params`` is the
+    trainable sub-tree and ``frozen`` the frozen base, which every
+    client's local step closes over."""
     _full_fp32()
-    opt = opt or sgd(flcfg.lr)
-    train_clients = torch.func.vmap(
-        make_local_update(loss_fn, opt, flcfg.local_steps), in_dims=(None, 0))
+    local_update = _local_update(loss_fn, flcfg, opt)
     strategy = make_strategy(flcfg)
     k = flcfg.clients_per_round
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
-                 state: Optional[dict] = None, uniform=None):
-        locals_, losses = train_clients(params, batch)
+                 state: Optional[dict] = None, uniform=None,
+                 frozen: Optional[Pytree] = None):
+        locals_, losses = torch.func.vmap(
+            _with_frozen(local_update, frozen), in_dims=(None, 0))(
+                params, batch)
         # Eq. 3 on the client-stacked locals: one call over every leaf
         divs = (umap.divergence(locals_, params)
                 if strategy.needs_divergence else None)
@@ -368,12 +395,13 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
     if not strategy.supports_scan:
         raise NotImplementedError(
             f"strategy {strategy.name!r} declares supports_scan=False")
-    local_update = make_local_update(loss_fn, opt or sgd(flcfg.lr),
-                                     flcfg.local_steps)
+    update = _local_update(loss_fn, flcfg, opt)
     k = flcfg.clients_per_round
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
-                 state: Optional[dict] = None, uniform=None):
+                 state: Optional[dict] = None, uniform=None,
+                 frozen: Optional[Pytree] = None):
+        local_update = _with_frozen(update, frozen)
         client_batches = [{name: v[i] for name, v in batch.items()}
                           for i in range(k)]
         # ---- phase 1: divergence feedback (only if the policy needs it)
@@ -427,6 +455,20 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
         return new_params, metrics
 
     return round_fn
+
+
+def _local_update(loss_fn, flcfg: FLConfig, opt: Optimizer | None):
+    return make_local_update(loss_fn, opt or sgd(flcfg.lr),
+                             flcfg.local_steps, remat=flcfg.remat,
+                             partition=flcfg.partition)
+
+
+def _with_frozen(local_update, frozen: Optional[Pytree]):
+    """``local_update(params, batch)``, with the frozen base closed in
+    when the round has one."""
+    if frozen is None:
+        return local_update
+    return lambda p, b: local_update(p, b, frozen)
 
 
 def build_round_fn(loss_fn, umap: UnitMap, flcfg: FLConfig,
@@ -507,15 +549,18 @@ def _initial_state(strategy, params: Pytree, flcfg: FLConfig,
 
 
 def _step(round_fn, params: Pytree, state: Optional[dict], batch: dict,
-          sizes: torch.Tensor, clients: torch.Tensor, rd, device):
+          sizes: torch.Tensor, clients: torch.Tensor, rd, device,
+          frozen: Optional[Pytree] = None):
     """One round of either driver: the participants' state rows in, the
     round, the rows scattered back; ``rd`` gives the algorithm stream."""
     uniform = _round_uniform(rd, device)
     if state is None:
-        params, metrics = round_fn(params, batch, sizes, uniform=uniform)
+        params, metrics = round_fn(params, batch, sizes, uniform=uniform,
+                                   frozen=frozen)
         return params, None, metrics
     params, metrics = round_fn(params, batch, sizes,
-                               _state_round_view(state, clients), uniform)
+                               _state_round_view(state, clients), uniform,
+                               frozen=frozen)
     return params, _state_scatter(state, metrics["state"], clients), metrics
 
 
@@ -536,6 +581,17 @@ def _progress(t: int, loss: float, test_error: Optional[float] = None,
               f"uplink {uplink_bytes / 1e6:.1f}MB")
     else:
         print(f"round {t:4d} loss {loss:.4f}")
+
+
+def _split(params: Pytree, flcfg: FLConfig):
+    """``(trainable, frozen, merged)``: the params split once by
+    ``flcfg.partition`` (``frozen`` None without one) and the function that
+    reassembles a full model from trainable leaves."""
+    partition = flcfg.partition
+    if partition is None:
+        return params, None, lambda p: p
+    trainable, frozen = partition.split(params)
+    return trainable, frozen, lambda p: partition.merge(p, frozen)
 
 
 def _device_shards(fldata, device) -> ClientShards:
@@ -582,6 +638,11 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     with the keyed streams the continuation is bit-identical to the
     uninterrupted run (the host sampler's sequential numpy stream is not
     resumable).
+
+    With ``flcfg.partition`` only the trainable leaves are trained,
+    scored, uploaded and carried in the strategy state; ``eval_fn`` sees
+    and the driver returns the full model, whose frozen leaves are the
+    given tensors (on ``device``), untouched.
     """
     if sampler == "jax":
         raise NotImplementedError(
@@ -593,7 +654,8 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         raise ValueError(f"sampler must be 'host' or 'device', got "
                          f"{sampler!r}")
     device = torch.device(device)
-    params = tree_map(lambda l: l.to(device), params)
+    params, frozen, merged = _split(
+        tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
     round_fn = build_round_fn(loss_fn, umap, flcfg)
     strategy = make_strategy(flcfg)
@@ -626,21 +688,21 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
             sizes = torch.from_numpy(host_all_sizes[clients]).to(device)
             idx = torch.from_numpy(clients).to(device)
         params, state, metrics = _step(round_fn, params, state, batch, sizes,
-                                       idx, rd, device)
+                                       idx, rd, device, frozen)
         log.meter.update(metrics["comm"])
         log.rounds.append(t)
         loss_t = float(metrics["loss"])     # device sync
         log.losses.append(loss_t)
         log.uplink_mb.append(log.meter.uplink_bytes / 1e6)
         if eval_fn is not None and (t % eval_every == 0 or t == last):
-            err = float(eval_fn(params))
+            err = float(eval_fn(merged(params)))
             log.test_errors.append((t, err, log.meter.uplink_bytes))
             if verbose:
                 _progress(t, loss_t, err, log.meter.uplink_bytes)
         elif verbose and t % 10 == 0:
             _progress(t, loss_t)
     log.final_state = state
-    return params, log
+    return merged(params), log
 
 
 # ======================================================================
@@ -666,13 +728,16 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
     memory; nothing in the loop synchronises. ``per_round`` holds the
     (num,) device tensors ``loss`` and ``uplink_bytes`` (cumulative, f32,
     as the reference's scan carry); a stateless strategy carries ``None``.
+    ``frozen`` is the frozen base of a partitioned run (see
+    :func:`build_round_vmap`).
     """
     round_fn = build_round_fn(loss_fn, umap, flcfg)
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
 
     def run_block(carry, shards: ClientShards, all_sizes: torch.Tensor,
-                  host_sizes: torch.Tensor, draws, t0: int, num: int):
+                  host_sizes: torch.Tensor, draws, t0: int, num: int,
+                  frozen: Optional[Pytree] = None):
         params, state, acc = carry
         device = all_sizes.device
         rds = [draws(t) for t in range(t0, t0 + num)]
@@ -691,7 +756,7 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
             idx = clients_d[i]
             params, state, metrics = _step(
                 round_fn, params, state, shards.gather(idx, j_d[i]),
-                all_sizes[idx], idx, rd, device)
+                all_sizes[idx], idx, rd, device, frozen)
             acc = comm_mod.comm_acc_update(acc, metrics["comm"])
             losses[i] = metrics["loss"]
             uplink[i] = acc["uplink_bytes"]
@@ -730,9 +795,12 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     server_state=<log.final_state or a loaded checkpoint>`` continues a run
     bit-identically to one that never stopped. ``server_state`` is copied
     once at entry; the caller's tensors are not written.
+
+    ``flcfg.partition`` is handled as in :func:`run_training`.
     """
     device = torch.device(device)
-    params = tree_map(lambda l: l.to(device), params)
+    params, frozen, merged = _split(
+        tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
     shards = _device_shards(fldata, device)
     run_block = _build_block_fn(loss_fn, umap, flcfg)
@@ -747,7 +815,7 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     for cut in _eval_cuts(rounds, eval_every, eval_fn is not None):
         num = cut - t0
         carry, per_round = run_block(carry, shards, all_sizes, host_sizes,
-                                     draws, start_round + t0, num)
+                                     draws, start_round + t0, num, frozen)
         # the block's one host pull
         losses, uplink = torch.stack([per_round["loss"],
                                       per_round["uplink_bytes"]]).cpu()
@@ -756,7 +824,7 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         log.uplink_mb.extend(float(u) / 1e6 for u in uplink)
         t_last = start_round + cut - 1
         if eval_fn is not None:
-            err = float(eval_fn(carry[0]))
+            err = float(eval_fn(merged(carry[0])))
             log.test_errors.append((t_last, err, float(uplink[-1])))
             if verbose:
                 _progress(t_last, float(losses[-1]), err, float(uplink[-1]))
@@ -766,4 +834,4 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     params, final_state, acc = carry
     log.meter = comm_mod.CommMeter.from_accumulator(acc)
     log.final_state = final_state
-    return params, log
+    return merged(params), log

@@ -20,8 +20,15 @@ no route gives way to another or to the plain PyTorch version,
 :mod:`repro_torch.kernels.ops` takes for CPU tensors only.
 
 Launch counts: ``flash_attention`` counts every launch and
-``flash_attention_<route>`` each route's. The kernels have no backward: an
-input that requires grad is refused.
+``flash_attention_<route>`` each route's. The launcher has no backward: an
+input that requires grad is refused. :class:`FlashAttentionFn` is the
+differentiable form that training calls (``models/attention.py:attend``):
+its forward is the same launch, its backward the analytic softmax-attention
+gradient in plain PyTorch ops (:func:`repro_torch.kernels.ref.
+flash_attention_bwd`; the Pallas kernel has no backward to port, the
+reference differentiates its plain attention), and its ``vmap`` rule folds
+``torch.func.vmap``'s client axis into the batch, so K stacked clients are
+one launch.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref as _ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -235,3 +243,61 @@ def _launch(q, k, v, out, causal, window, kv_len):
     _build.check(lib, code, f"flash_attention ({name} route)")
     _build.LAUNCHES["flash_attention"] += 1
     _build.LAUNCHES[f"flash_attention_{name}"] += 1
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable GQA flash attention in the model's layout: q (B, Sq,
+    H, hd), k and v (B, Skv, KV, hd).
+
+    ``apply(q, k, v, causal, window, kv_len)`` launches the kernel of
+    :func:`route` on CUDA tensors (the plain
+    :func:`repro_torch.kernels.ref.flash_attention` on CPU tensors) and
+    saves q, k, v and the output; the backward recomputes the masked
+    probabilities (:func:`repro_torch.kernels.ref.flash_attention_bwd`).
+    Under ``torch.func.grad`` and ``torch.func.vmap`` the ``vmap`` rule
+    moves the vmapped dim to the front of every input (expanding an
+    unbatched one), folds it into B, calls ``apply`` once on contiguous
+    (N·B, S, H, hd) tensors and unfolds the result.
+    """
+
+    @staticmethod
+    def forward(q, k, v, causal, window, kv_len):
+        # the launcher refuses grad-requiring tensors; the graph is this
+        # Function's, so the kernel sees detached views of the same memory
+        q, k, v = q.detach(), k.detach(), v.detach()
+        if q.device.type == "cuda":
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+        return _ref.flash_attention(q, k, v, causal=causal, window=window,
+                                    kv_len=kv_len)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, kv_len = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.masks = (causal, window, kv_len)
+
+    @staticmethod
+    def backward(ctx, dout):
+        # once differentiable: detached, the backward's intermediates (the
+        # recomputed probabilities) are freed as it goes, where
+        # torch.func.grad's create_graph=True would keep them to the end
+        q, k, v, out = (t.detach() for t in ctx.saved_tensors)
+        causal, window, kv_len = ctx.masks
+        dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout.detach(),
+                                              causal=causal, window=window,
+                                              kv_len=kv_len)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, kv_len):
+        n = info.batch_size
+
+        def fold(t, d):
+            t = (t.unsqueeze(0).expand(n, *t.shape) if d is None
+                 else t.movedim(d, 0))
+            return t.reshape(n * t.shape[1], *t.shape[2:]).contiguous()
+
+        qf, kf, vf = (fold(t, d) for t, d in zip((q, k, v), in_dims[:3]))
+        out = FlashAttentionFn.apply(qf, kf, vf, causal, window, kv_len)
+        return out.reshape(n, -1, *out.shape[1:]), 0

@@ -13,9 +13,12 @@ the order open), so the CUDA kernels can match them bit for bit.
 :func:`flash_attention` follows the Pallas kernel
 (``src/repro/kernels/flash_attention.py``), not its oracle: a row that no
 key may attend to gives 0 there, where :func:`ref_attention` (the port of
-the reference's oracle) gives the mean of V. :func:`flash_attention_split`
-models the decode kernel's split-KV partial-and-merge arithmetic; only the
-tests use it.
+the reference's oracle) gives the mean of V. :func:`flash_attention_bwd`
+is its analytic gradient, the backward of the kernel's differentiable form
+(``kernels/flash_attention.py:FlashAttentionFn``) on the CPU and on the
+card alike: the Pallas kernel has no backward to port.
+:func:`flash_attention_split` models the decode kernel's split-KV
+partial-and-merge arithmetic; only the tests use it.
 """
 from __future__ import annotations
 
@@ -203,6 +206,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.bmm(p.reshape(bkv, g * sq, skv), v.float())
     o = o.reshape(bkv, g, sq, hd) / l.clamp_min(1e-30)
     return o.reshape(bh, sq, hd).to(q.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        kv_len: int | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The analytic gradient of :func:`flash_attention` in the model's
+    layout (q, out, dout (B, Sq, H, hd); k, v (B, Skv, KV, hd)), in f32:
+    the masked probabilities P are recomputed from q and k, then
+
+        dV = Σ_g Pᵀ·dO,   dP = dO·Vᵀ,   dS = P∘(dP − rowsum(dO∘O)),
+        dQ = dS·K·scale,  dK = Σ_g dSᵀ·Q·scale,
+
+    with head ``h`` reading KV head ``h // G`` (Σ_g adds a KV head's G
+    query heads). A row with no visible key has P = 0, so it gets zero
+    gradients. Returns (dq, dk, dv), each in its input's dtype.
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    kv_len = skv if kv_len is None else kv_len
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, sq, kvh, g, hd)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qf, kf) * scale
+    ok = _attention_mask(sq, skv, causal, window, kv_len, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    do = dout.float().reshape(b, sq, kvh, g, hd)
+    delta = (do * out.float().reshape(b, sq, kvh, g, hd)).sum(dim=-1)
+    dv = torch.einsum("bkgqc,bqkgd->bckd", p, do)
+    dp = torch.einsum("bqkgd,bckd->bkgqc", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqc,bckd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqc,bqkgd->bckd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

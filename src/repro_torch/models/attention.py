@@ -3,8 +3,15 @@ M-RoPE, the masked single block and the chunked online softmax, behind one
 entry point :func:`attend`.
 
 On a CUDA tensor :func:`attend` runs the flash-attention kernel
-(``kernels/csrc/flash_attention.cu``) for the two masks the serving path
-uses, and raises ``NotImplementedError`` for any other:
+(``kernels/flash_attention.py``, three routes) for the two masks the
+serving path uses, and raises ``NotImplementedError`` for any other. It
+goes through the kernel's differentiable form
+:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (training,
+under ``torch.func.grad`` and ``vmap``, and inside the recompute of
+``remat_blocks``, whose forward runs without grad mode) except under
+``torch.inference_mode`` (serving), where it launches the same kernel
+directly: that saves the Function's host cost on the host-paced decode
+step (``chip_smoke.py`` phase 13 times both; PERF.md). The masks:
 
 - causal over positions ``arange(S)`` (``q_pos`` and ``kv_pos`` left
   ``None``), with an optional sliding ``window``: prefill and ``forward``;
@@ -27,6 +34,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 
 NEG_INF = -1e30
 
@@ -185,9 +193,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On CUDA only the kernel's masks are taken (see the module docstring);
     ``flash_attention`` replaces the kernel there with a function of the
-    same signature (for example the plain
+    same signature, called directly (for example the plain
     :func:`repro_torch.kernels.ref.flash_attention`, to hold the kernel to
-    it). ``chunk``, ``flash_threshold`` choose the CPU branch.
+    it: its gradient is then autograd's). ``chunk``, ``flash_threshold``
+    choose the CPU branch.
     """
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
@@ -201,8 +210,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "causal/window masks over arange positions or a filled "
                 "prefix kv_len; got explicit positions, a kv_valid mask or "
                 "probs_bf16")
-        fn = flash_attention or ops.flash_attention
-        return fn(q, k, v, causal=causal, window=window, kv_len=kv_len)
+        if flash_attention is not None:
+            return flash_attention(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+        if torch.is_inference_mode_enabled():
+            return ops.flash_attention(q, k, v, causal=causal,
+                                       window=window, kv_len=kv_len)
+        return FlashAttentionFn.apply(q, k, v, causal, window, kv_len)
     skv = k.shape[1]
     if q_pos is None:
         q_pos = torch.arange(sq, device=q.device)

@@ -14,18 +14,31 @@ weights ``(d_in, d_out)``), so its params cross with
 
 The reference scans the stacked blocks; here :func:`_run_stack` is a
 Python loop over ``l`` that takes each layer's leaves as views
-(``tree_stack_index``). The ``moe``, ``ssm``, ``hybrid`` and enc-dec
-(``dec``) kinds are not ported yet (ROADMAP Queue 1 item 10) and raise
-``NotImplementedError``; the loss and training come with the training
-slice.
+(``tree_stack_index``). ``ModelConfig.remat_blocks`` (the reference's
+``jax.checkpoint`` around each block) wraps each block in
+:class:`_RecomputeBlock`, an ``autograd.Function`` that keeps only the
+block's inputs and recomputes the block in the backward pass; it works
+under ``torch.func.grad`` and ``vmap``, where ``torch.utils.checkpoint``
+does not (saved-tensor hooks, and a Function without ``setup_context``,
+are refused there).
+
+:func:`lm_loss` / :func:`make_lm_loss` are the training objective of the
+federated fine-tuning path (``FLConfig(partition=lora_partition(...))``).
+On the card the attention of every pass, training included, is the flash
+attention kernel (``models/attention.py``); ``flash_attention=`` replaces
+it with a plain function of the same signature.
+
+The ``moe``, ``ssm``, ``hybrid`` and enc-dec (``dec``) kinds are not
+ported yet (ROADMAP Queue 1 item 10) and raise ``NotImplementedError``.
 
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core.partition import leaf_paths, tree_from_paths
 from repro_torch.core.units import tree_stack_index
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig, dtype_of
@@ -143,29 +156,84 @@ def _qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True):
+def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True,
+               flash_attention: Optional[Callable] = None):
     """Self-attention over positions ``arange(S)`` (the only positions the
     full-sequence passes use)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     o = attn.attend(q, k, v, causal=causal, window=cfg.sliding_window,
-                    chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16)
+                    chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16,
+                    flash_attention=flash_attention)
     return lora_dense(o.reshape(b, s, -1), p["wo"], p.get("lora"), "wo")
 
 
 # ======================================================================
 # Block forward (full sequence)
 # ======================================================================
-def _block_fwd(blk, cfg: ModelConfig, x, positions):
+def _block_fwd(blk, cfg: ModelConfig, x, positions, flash_attention=None):
     h = rms_norm(x, blk["ln1"])
-    x = x + _self_attn(blk["attn"], cfg, h, positions)
+    x = x + _self_attn(blk["attn"], cfg, h, positions,
+                       flash_attention=flash_attention)
     h2 = rms_norm(x, blk["ln2"])
     return x + mlp_fwd(blk["mlp"], h2)
 
 
-def _run_stack(blocks, cfg: ModelConfig, x, positions):
+class _RecomputeBlock(torch.autograd.Function):
+    """``apply(fn, *tensors) = fn(*tensors)``, keeping only ``tensors`` (the
+    block's input and its weights, which stay alive anyway) for the
+    backward, which recomputes ``fn`` under ``torch.func.vjp`` with respect
+    to the inputs that need a gradient. ``generate_vmap_rule`` lets
+    ``torch.func.vmap`` batch forward and backward as plain ops."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *tensors):
+        return fn(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, dout):
+        # detached: the recompute is not itself recorded for a second
+        # derivative (torch.func.grad runs its backward with
+        # create_graph=True, which would otherwise keep every recomputed
+        # block alive until the end of the backward pass)
+        tensors = [t.detach() for t in ctx.saved_tensors]
+        need = [i for i, n in enumerate(ctx.needs_input_grad[1:]) if n]
+
+        def part(*diff):
+            full = list(tensors)
+            for i, t in zip(need, diff):
+                full[i] = t
+            return ctx.fn(*full)
+
+        _, vjp = torch.func.vjp(part, *(tensors[i] for i in need))
+        grads = [None] * len(tensors)
+        for i, g in zip(need, vjp(dout.detach())):
+            grads[i] = g
+        return (None, *grads)
+
+
+def _run_stack(blocks, cfg: ModelConfig, x, positions, flash_attention=None):
     for l in range(cfg.num_layers):
-        x = _block_fwd(tree_stack_index(blocks, l), cfg, x, positions)
+        blk = tree_stack_index(blocks, l)
+        if not cfg.remat_blocks:
+            x = _block_fwd(blk, cfg, x, positions, flash_attention)
+            continue
+        paths, leaves = zip(*leaf_paths(blk))
+
+        def fn(x, positions, *leaves, paths=paths):
+            return _block_fwd(tree_from_paths(paths, leaves), cfg, x,
+                              positions, flash_attention)
+
+        # every tensor is an argument: a generated vmap rule refuses a
+        # closure over a tensor made inside the transforms
+        x = _RecomputeBlock.apply(fn, x, positions, *leaves)
     return x
 
 
@@ -200,9 +268,12 @@ def _logits(params, cfg: ModelConfig, x):
 
 def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             enc_inputs: Optional[torch.Tensor] = None,
-            embeddings: Optional[torch.Tensor] = None):
+            embeddings: Optional[torch.Tensor] = None, *,
+            flash_attention: Optional[Callable] = None):
     """Full-sequence forward. tokens: (B, S) int -> logits (B, S, V), aux
-    (the MoE balance loss in the reference; 0 for the dense kind)."""
+    (the MoE balance loss in the reference; 0 for the dense kind).
+    ``flash_attention`` replaces the kernel on CUDA (see
+    :func:`repro_torch.models.attention.attend`)."""
     check_ported(cfg)
     if enc_inputs is not None:
         raise NotImplementedError("enc-dec models are not ported yet "
@@ -210,5 +281,36 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens, embeddings)
     pos = _positions_for(cfg, b, s, tokens.device)
-    x = _run_stack(params["blocks"], cfg, x, pos)
+    x = _run_stack(params["blocks"], cfg, x, pos, flash_attention)
     return _logits(params, cfg, x), torch.zeros((), device=x.device)
+
+
+# ======================================================================
+# Loss
+# ======================================================================
+def lm_loss(params: Pytree, cfg: ModelConfig, batch: dict, *,
+            flash_attention: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross-entropy (+ 0.01 · aux). batch: tokens, labels[,
+    enc_inputs, embeddings]; log-softmax in f32, labels < 0 masked out."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          enc_inputs=batch.get("enc_inputs"),
+                          embeddings=batch.get("embeddings"),
+                          flash_attention=flash_attention)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = labels >= 0
+    nll = -torch.take_along_dim(
+        logp, torch.where(mask, labels, 0).long()[..., None], dim=-1)[..., 0]
+    mask = mask.float()
+    loss = torch.sum(nll * mask) / torch.clamp_min(mask.sum(), 1.0)
+    return loss + 0.01 * aux
+
+
+def make_lm_loss(cfg: ModelConfig, *,
+                 flash_attention: Optional[Callable] = None):
+    """A ``loss_fn(params, batch)`` closure over ``cfg`` for the FL
+    drivers."""
+    def loss_fn(params: Pytree, batch: dict) -> torch.Tensor:
+        return lm_loss(params, cfg, batch, flash_attention=flash_attention)
+
+    return loss_fn

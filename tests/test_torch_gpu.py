@@ -1,8 +1,10 @@
 """On the card: the port's CUDA kernels against their plain PyTorch versions,
 a round on the card against the same round on the CPU, the multi-round
 engine (against the CPU engine, no host sync in a block, resume bit for
-bit), and the serving path through the flash-attention kernels (all three
-routes: tensor-core prefill, split-KV decode, CUDA cores).
+bit), the serving path through the flash-attention kernels (all three
+routes: tensor-core prefill, split-KV decode, CUDA cores), and LoRA
+fine-tuning through the kernel's differentiable form (``FlashAttentionFn``
+under ``torch.func``, a partitioned round against the CPU, remat blocks).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1040,3 +1042,117 @@ def test_cuda_flash_new_routes_reject_bad_inputs(cuda):
     with pytest.raises(TypeError):                      # dtype mix
         tkf.flash_attention(q[:, :1], k.float(), v)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+# ----------------------------------------------------------------------
+# LoRA fine-tuning through the kernel (FlashAttentionFn under torch.func)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("hd,dtype", [(64, "f32"), (128, "bf16"),
+                                      (16, "bf16")])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24)])
+def test_cuda_flash_attention_fn_grads_match_plain(cuda, hd, dtype, causal,
+                                                   window):
+    """vmap(grad) through the kernel (one launch for the 3 clients) against
+    autograd of the plain version, client by client."""
+    n, b, s, h, kvh = 3, 2, 80, 4, 2
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v, w = (torch.randn(shape, generator=g, device=cuda,
+                              dtype=DTYPES[dtype])
+                  for shape in ((n, b, s, h, hd), (n, b, s, kvh, hd),
+                                (n, b, s, kvh, hd), (n, b, s, h, hd)))
+
+    def loss(attn_fn):
+        return lambda q, k, v, w: (attn_fn(q, k, v).float() * w.float()).sum()
+
+    got = torch.func.vmap(torch.func.grad(loss(
+        lambda q, k, v: tkf.FlashAttentionFn.apply(q, k, v, causal, window,
+                                                   None)),
+        argnums=(0, 1, 2)))(q, k, v, w)
+    assert ops.launch_counts()["flash_attention"] == 1
+    for i in range(n):
+        leaves = [t[i].clone().requires_grad_() for t in (q, k, v)]
+        out = ref.flash_attention(*leaves, causal=causal, window=window)
+        (out.float() * w[i].float()).sum().backward()
+        for got_g, t in zip(got, leaves):
+            scale = float(t.grad.float().abs().max())
+            assert got_g.dtype == t.dtype
+            err = float((got_g[i].float() - t.grad.float()).abs().max())
+            assert err <= FLASH_TOL[dtype] * max(scale, 1.0), err
+
+
+TINY_LM = dict(name="tiny", family="dense", d_model=128, num_layers=2,
+               num_heads=4, num_kv_heads=2, d_ff=256, vocab_size=128,
+               param_dtype="float32", compute_dtype="float32")
+
+
+def _lora_task(cfg):
+    from repro_torch.data import lm_federated, make_lm_dataset
+    from repro_torch.models.lora import inject_lora, lora_partition
+    tokens, domains = make_lm_dataset(num_sequences=64, seq_len=33,
+                                      vocab=cfg.vocab_size, num_domains=4,
+                                      seed=0)
+    params = inject_lora(
+        ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
+        4, torch.Generator().manual_seed(1))
+    # a non-zero b, so the first round already moves every factor
+    for lora in (params["blocks"]["attn"]["lora"],
+                 params["blocks"]["mlp"]["lora"]):
+        for f in lora.values():
+            f["b"] = 0.05 * torch.randn(f["b"].shape,
+                                        generator=torch.Generator()
+                                        .manual_seed(2))
+    return params, lm_federated(tokens, domains, 4), lora_partition(params)
+
+
+@pytest.mark.parametrize("mode", ["vmap", "scan"])
+def test_cuda_lora_round_matches_cpu(cuda, mode):
+    """A partitioned fedldf run of 2 rounds (hd 32, f32: the CUDA-core
+    route) on the card against the CPU: the frozen base untouched, the
+    adapters within 2e-5, one kernel launch a layer for the K clients in
+    vmap mode (two passes of K in scan mode)."""
+    cfg = ModelConfig(**TINY_LM)
+    params, data, part = _lora_task(cfg)
+    fl = FLConfig(num_clients=4, clients_per_round=2, top_n=1, mode=mode,
+                  batch_per_client=4, partition=part)
+    loss = ttf.make_lm_loss(cfg)
+    out_c, log_c = run_training_scan(params, loss, data, fl, rounds=2,
+                                     device="cpu")
+    ops.reset_launch_counts()
+    params_g = tree_map(lambda l: l.to(cuda), params)
+    out_g, log_g = run_training_scan(params_g, loss, data, fl, rounds=2,
+                                     device=cuda)
+    per_round = cfg.num_layers * (1 if mode == "vmap" else 4)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * per_round
+    assert counts["flash_attention_cuda_core"] == 2 * per_round
+    np.testing.assert_allclose(log_g.losses, log_c.losses, atol=1e-5,
+                               rtol=0)
+    _, frozen0 = part.split(params_g)
+    _, frozen1 = part.split(out_g)
+    for a, b in zip(tree_leaves(frozen0), tree_leaves(frozen1)):
+        assert a is b
+    for a, c in zip(tree_leaves(out_g), tree_leaves(out_c)):
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=EQUIV_TOL)
+
+
+def test_cuda_remat_blocks_round(cuda):
+    """remat_blocks recomputes each block in the backward pass through the
+    kernel: the same adapters as without, and more flash-attention
+    launches (the recompute's)."""
+    cfg = ModelConfig(**TINY_LM)
+    params, data, part = _lora_task(cfg)
+    fl = FLConfig(num_clients=4, clients_per_round=2, top_n=1,
+                  batch_per_client=4, partition=part)
+    outs, launches = [], []
+    for remat in (False, True):
+        ops.reset_launch_counts()
+        c = dataclasses.replace(cfg, remat_blocks=remat)
+        outs.append(run_training_scan(
+            tree_map(lambda l: l.to(cuda), params), ttf.make_lm_loss(c),
+            data, fl, rounds=2, device=cuda))
+        launches.append(ops.launch_counts()["flash_attention"])
+    assert launches == [2 * cfg.num_layers, 4 * cfg.num_layers]
+    (p0, l0), (p1, l1) = outs
+    np.testing.assert_allclose(l1.losses, l0.losses, atol=1e-6, rtol=0)
+    for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
+        torch.testing.assert_close(a, b, rtol=0, atol=EQUIV_TOL)
