@@ -93,7 +93,25 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    ``FlashAttentionFn``'s gradients at one layer's training shape against
    autograd of the plain version (1e-4 f32, 2e-2 bf16 of max |grad|) and
    its forward and backward times beside SDPA's; each mode's round
-   wall-clock and device idle share.
+   wall-clock and device idle share;
+14. serving the ssm and hybrid families at full width and depth:
+   mamba2-780m (48 attention-free Mamba-2 SSD blocks) and hymba-1.5b (32
+   blocks of attention ∥ SSD, 25 query heads over 5 KV heads at hd 64),
+   random weights from seed 0, batch 4, a 2048-token prompt, 32 greedy
+   decode steps; the parameter tree's params, bytes and leaves and the
+   cache's bytes at max_len 2080 asserted; in f32 (TF32 off) the prefill
+   and decode logits within 1e-3 of max |logit| of ``forward`` over the
+   same tokens and, for hymba, of the same steps through the plain
+   attention, the greedy tokens equal but at near-ties; at one
+   full-width layer the chunked SSD (``ssd_fwd``) against its token-by-
+   token recurrence (``ssd_step``) at S = 512 and 300, within 1e-4 of max
+   |y| (state and conv tail alike); in bf16, timed: prefill ms and decode
+   ms a token (median of 3), device busy time, idle share and top device
+   ops of one prefill and one decode step under ``torch.profiler``, peak
+   memory, and the launches (hymba 32 a prefill, all on the tensor-core
+   route, and 32 a decode step, all on the split-KV route; mamba2 none),
+   hymba's kernel on its own main-path calls against plain and its times;
+   then the serve launcher once for each.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -103,7 +121,7 @@ plain version: ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4
 / 2e-2), a decode sweep (Sq 1, 5, 16; G 1, 2, 7, 8; kv_len 0, 1, a split
 boundary ± 1 and Skv; causal and windowed), ragged and padded tensor-core
 cases, a fully masked case a route, and the full-width prefill and decode
-shapes in bf16 and f32. Phase 9 times the CUDA-core route on the f32
+shapes of qwen3-1.7b and hymba-1.5b (G = 5, hd 64) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
 prefill's own calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -173,6 +191,21 @@ LORA_TRAINABLE = (8_716_288, 17_432_576, 28, {622_592}, 14)
 # uplink bytes a round: fedldf n·U·622,592 + K·U·4, and int8 + EF
 # n·U·(311,296 + 5) + K·U·4
 LORA_UPLINK = (34_865_600, 17_433_304)
+# phase 14: serving the ssm and hybrid families at full width
+SSM_ARCHS = ("mamba2-780m", "hymba-1.5b")
+HYMBA_HEADS = (25, 5, 64)           # query heads, KV heads, hd
+# params, bytes (bf16, with the f32 A_log, D_skip and dt_bias) and leaves of
+# the reference's init_params (jax.eval_shape); cfg.param_count() leaves out
+# the norm scales and the conv and SSD vectors
+SSM_PARAMS = {"mamba2-780m": (780_148_992, 1_560_311_808, 11),
+              "hymba-1.5b": (1_640_872_320, 3_281_754_240, 20)}
+# cache bytes at batch 4 and max_len 2080: ssm_state f32, the rest bf16
+SSM_CACHE = {"mamba2-780m": {"ssm_conv": 3_833_856,
+                             "ssm_state": 301_989_888},
+             "hymba-1.5b": {"k": 170_393_600, "v": 170_393_600,
+                            "ssm_conv": 2_482_176, "ssm_state": 26_214_400}}
+SSD_LENGTHS = (512, 300)            # four chunks; a ragged last chunk
+SSD_RTOL = 1e-4                     # of max |y| (|state|, |conv|)
 APPLY_CALLS = 2000          # calls a turn when timing the host enqueue
 SLEEP_CYCLES = 10_000_000   # ~5 ms of GPU spin: the host enqueues meanwhile
 
@@ -678,6 +711,22 @@ def main():
         for kv_len in (1, SERVE_PROMPT + 1, skv):
             flash_check(f"decode {(64, 32, 1, skv, 128)} kv_len={kv_len}", q,
                         k, v, dn, causal=False, kv_len=kv_len)
+    # hymba-1.5b's shapes at batch 4: 25 query heads over 5 KV heads (G =
+    # 5), hd 64; a causal prefill and a decode step over its 2080 slots
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        bh, bkv, hd = 4 * HYMBA_HEADS[0], 4 * HYMBA_HEADS[1], HYMBA_HEADS[2]
+        q, k, v = (randn((bh, SERVE_PROMPT, hd), dtype),
+                   randn((bkv, SERVE_PROMPT, hd), dtype),
+                   randn((bkv, SERVE_PROMPT, hd), dtype))
+        shape = (bh, bkv, SERVE_PROMPT, SERVE_PROMPT, hd)
+        flash_check(f"hymba prefill {shape} causal", q, k, v, dn,
+                    causal=True)
+        skv = SERVE_PROMPT + SERVE_STEPS
+        q, k, v = (randn((bh, 1, hd), dtype), randn((bkv, skv, hd), dtype),
+                   randn((bkv, skv, hd), dtype))
+        flash_check(f"hymba decode {(bh, bkv, 1, skv, hd)} kv_len="
+                    f"{SERVE_PROMPT + 1}", q, k, v, dn, causal=False,
+                    kv_len=SERVE_PROMPT + 1)
     say(f"[kernel] flash_attention calls a route in this phase: {fa_seen}; "
         f"max_abs_err a route: {fa_err}")
     if not all(fa_seen.values()):
@@ -2057,6 +2106,246 @@ def main():
             f"under torch.profiler {busy:.3f} ms a round, idle share "
             f"{idle:.4f} ({smi})")
     say(f"[lora] phase 13: {time.perf_counter() - t13:.1f} s")
+
+    # ---- 14. serving the ssm and hybrid families at full width ----------
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.units import tree_stack_index
+    from repro_torch.models import ssm as ssm_mod
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    max_len = SERVE_PROMPT + SERVE_STEPS
+
+    def profile_once(fn):
+        """fn()'s result, its device busy ms under torch.profiler, its top
+        device kernels and the PyTorch ops that launched the most device
+        time (each op's own kernels)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kern = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops_ = [e for e in events
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.self_device_time_total > 0]
+
+        def top(evs, n, width):
+            evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+            return "; ".join(f"{e.key[:width]} "
+                             f"{e.self_device_time_total / 1e3:.3f} ms "
+                             f"x{e.count}" for e in evs)
+        return (out, sum(e.self_device_time_total for e in kern) / 1e3,
+                top(kern, 6, 60) + " | by op: " + top(ops_, 8, 40))
+
+    for arch in SSM_ARCHS:
+        cfg_bf = get_config(arch)
+        cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
+                                    compute_dtype="float32")
+        hybrid = tf.block_kind(cfg_bf) == "hybrid"
+        nl = cfg_bf.num_layers
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg_bf.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT))).to(dev)
+
+        def serve14(p, cfg, label):
+            """The main path (prefill + SERVE_STEPS greedy decode steps),
+            the launch counts zeroed just before and read just after: the
+            hybrid launches the kernel once a layer a pass, every prefill
+            launch on its dtype's prefill route and every decode launch on
+            the split-KV route; the ssm kind never."""
+            ops.reset_launch_counts()
+            run = serve.generate(p, cfg, prompts, steps, keep_logits=True)
+            counts = ops.launch_counts()
+            want = dict.fromkeys(flash_attention.ROUTES, 0)
+            if hybrid:
+                want[flash_attention.route(dtype_of(cfg.compute_dtype),
+                                           SERVE_PROMPT, cfg.hd)] += nl
+                want["decode"] += nl * SERVE_STEPS
+            got = {r: counts[f"flash_attention_{r}"] for r in want}
+            say(f"[{label}] prefill {run.prefill_s * 1e3:.3f} ms, decode "
+                f"{run.decode_s_per_token * 1e3:.3f} ms/token; "
+                f"flash_attention launches {counts['flash_attention']}, by "
+                f"route {got} (want {want})")
+            if counts["flash_attention"] != sum(want.values()) or \
+                    got != want:
+                fail(f"{label}: flash_attention launches {got}, expected "
+                     f"{want}")
+            if not all(bool(torch.isfinite(lg).all()) and
+                       lg.shape == (SERVE_BATCH, cfg.vocab_size)
+                       for lg in run.logits):
+                fail(f"{label}: non-finite or mis-shaped logits")
+            return run, got
+
+        # f32 (TF32 off), for parity: the kernel path against forward over
+        # the same tokens and, for the hybrid, against the plain attention
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg32, gen_w.manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        say(f"[ssm-serve] {arch}: {nl} layers, d={cfg_bf.d_model}, SSD "
+            f"d_inner {cfg_bf.ssm_d_inner} in {cfg_bf.ssm_heads} heads of "
+            f"{cfg_bf.ssm_head_dim}, state {cfg_bf.ssm_state}, chunk "
+            f"{cfg_bf.ssm_chunk}, conv {cfg_bf.ssm_conv_width}"
+            + (f", attention {cfg_bf.num_heads} over {cfg_bf.num_kv_heads} "
+               f"KV heads at hd {cfg_bf.hd}, d_ff {cfg_bf.d_ff}"
+               if hybrid else ", attention-free")
+            + f", vocab {cfg_bf.vocab_size}; batch {SERVE_BATCH}, prompt "
+            f"{SERVE_PROMPT}, {SERVE_STEPS} decode steps; f32 init "
+            f"{time.perf_counter() - t0:.2f} s")
+        run32, n32 = serve14(params, cfg32, f"{arch} f32")
+        for r in flash_attention.ROUTES:
+            launches[r] += n32[r]
+        with torch.inference_mode():
+            seq = torch.cat([prompts, run32.tokens[:, :SERVE_STEPS]], dim=1)
+            full = tf.forward(params, cfg32, seq)[0][:, SERVE_PROMPT - 1:]
+            got = torch.stack(run32.logits, dim=1)          # (B, steps, V)
+            tol = SERVE_RTOL * float(got.abs().max())
+            d_full = float((got - full).abs().max())
+            against, d_plain = full, None
+            if hybrid:
+                lg, cache = dec.prefill(params, cfg32, prompts,
+                                        max_len=max_len,
+                                        flash_attention=kref.flash_attention)
+                plain = [lg]
+                for t in range(SERVE_STEPS):
+                    lg, cache = dec.decode_step(
+                        params, cfg32, run32.tokens[:, t:t + 1], cache,
+                        flash_attention=kref.flash_attention)
+                    plain.append(lg)
+                del cache
+                against = torch.stack(plain, dim=1)
+                d_plain = float((got - against).abs().max())
+            top2 = against.topk(2, dim=-1).values
+            gap = top2[..., 0] - top2[..., 1]
+            same = against.argmax(dim=-1) == run32.tokens
+            bad = (~same & (gap >= tol)).any(dim=0)
+        say(f"[ssm-serve {arch} f32] max |logit| {tol / SERVE_RTOL:.4f}; "
+            f"prefill + decode vs forward: max_abs_diff {d_full:.3e}"
+            + (f"; kernel vs plain attention: max_abs_diff {d_plain:.3e}"
+               if hybrid else "")
+            + f" (limit {tol:.3e} = {SERVE_RTOL} x max |logit|); greedy "
+            f"tokens equal at {int(same.all(dim=0).sum())} of {steps} steps "
+            f"(against {'the plain attention' if hybrid else 'forward'}); "
+            f"steps with a top-2 gap below the limit: "
+            f"{(gap < tol).any(dim=0).nonzero().flatten().tolist()}")
+        if d_full > tol or (hybrid and d_plain > tol) or bool(bad.any()):
+            fail(f"{arch} f32: the serving path disagrees with forward or "
+                 "with the plain attention")
+        del full, got, against, top2, gap, same, seq, run32
+        if hybrid:
+            del plain
+
+        # the chunked SSD against its own recurrence, one full-width layer
+        ssd_p = tree_stack_index(params["blocks"], 0)["ssm"]
+        for s_ in SSD_LENGTHS:
+            x = randn((SERVE_BATCH, s_, cfg32.d_model))
+            with torch.inference_mode():
+                y, c = ssm_mod.ssd_fwd(ssd_p, x, cfg32, return_cache=True)
+                st = ssm_mod.init_ssm_cache(cfg32, SERVE_BATCH,
+                                            torch.float32, dev)
+                ys = []
+                for t in range(s_):
+                    o, st = ssm_mod.ssd_step(ssd_p, x[:, t:t + 1], st, cfg32)
+                    ys.append(o)
+                ys = torch.cat(ys, dim=1)
+            rel = {n_: float((a_ - b_).abs().max() / b_.abs().max())
+                   for n_, a_, b_ in (("y", ys, y),
+                                      ("state", st["state"], c["state"]),
+                                      ("conv", st["conv"], c["conv"]))}
+            say(f"[ssm-serve {arch} ssd] layer 0, (B, S) = ({SERVE_BATCH}, "
+                f"{s_}), {-(-s_ // cfg32.ssm_chunk)} chunks: ssd_fwd against "
+                f"ssd_step token by token, max_abs_diff / max |ref|: "
+                + ", ".join(f"{n_} {v_:.3e}" for n_, v_ in rel.items())
+                + f" (limit {SSD_RTOL})")
+            if max(rel.values()) > SSD_RTOL:
+                fail(f"{arch}: the chunked SSD disagrees with its recurrence "
+                     f"at S={s_}: {rel}")
+        del params, ssd_p, x, y, c, st, ys
+        torch.cuda.empty_cache()
+
+        # bf16, timed
+        params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
+        leaves = tree_leaves(params)
+        sizes = (sum(l_.numel() for l_ in leaves),
+                 sum(l_.numel() * l_.element_size() for l_ in leaves),
+                 len(leaves))
+        say(f"[ssm-serve {arch} bf16] params {sizes[0]:,} = {sizes[1]:,} B "
+            f"over {sizes[2]} leaves (want {SSM_PARAMS[arch]}; "
+            f"cfg.param_count() {cfg_bf.param_count():,})")
+        if sizes != SSM_PARAMS[arch]:
+            fail(f"{arch}: the parameter tree holds {sizes}, expected "
+                 f"{SSM_PARAMS[arch]}")
+        serve.generate(params, cfg_bf, prompts[:, :256], 4)        # warm-up
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [serve14(params, cfg_bf, f"{arch} bf16 #{i}")
+                for i in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        for _, n_ in runs:
+            for r in flash_attention.ROUTES:
+                launches[r] += n_[r]
+        pre_ms = statistics.median(r_.prefill_s * 1e3 for r_, _ in runs)
+        tok_ms = statistics.median(r_.decode_s_per_token * 1e3
+                                   for r_, _ in runs)
+        with torch.inference_mode():
+            (lg, cache), busy_pre, top_pre = profile_once(
+                lambda: dec.prefill(params, cfg_bf, prompts,
+                                    max_len=max_len))
+            _, busy_dec, top_dec = profile_once(
+                lambda: dec.decode_step(params, cfg_bf,
+                                        lg.argmax(-1)[:, None], cache))
+        cache_b = {n_: t_.numel() * t_.element_size()
+                   for n_, t_ in cache.items() if n_ != "pos"}
+        say(f"[ssm-serve {arch} bf16] cache at max_len {max_len}: "
+            + ", ".join(f"{n_} {tuple(cache[n_].shape)} {cache[n_].dtype} "
+                        f"{b_:,} B" for n_, b_ in cache_b.items())
+            + f" (want {SSM_CACHE[arch]})")
+        if cache_b != SSM_CACHE[arch]:
+            fail(f"{arch}: cache sizes {cache_b}, expected "
+                 f"{SSM_CACHE[arch]}")
+        say(f"[profile] {arch} one bf16 prefill: device busy {busy_pre:.3f} "
+            f"ms, idle share {1 - busy_pre / pre_ms:.4f}; top device ops: "
+            f"{top_pre}")
+        say(f"[profile] {arch} one bf16 decode step: device busy "
+            f"{busy_dec:.3f} ms, idle share {1 - busy_dec / tok_ms:.4f}; "
+            f"top device ops: {top_dec}")
+        if hybrid:
+            # the kernel on the main path's own calls against plain, and
+            # its time a use at hymba's shapes
+            recorded_fa = []
+            with torch.inference_mode():
+                lg, cache = dec.prefill(params, cfg_bf, prompts,
+                                        max_len=max_len,
+                                        flash_attention=recording_fa)
+                pre_calls = recorded_fa[:]
+                dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None],
+                                cache, flash_attention=recording_fa)
+                dec_calls = recorded_fa[len(pre_calls):]
+                main_path_check(pre_calls, f"{arch} bf16 prefill", "bf16")
+                main_path_check(dec_calls, f"{arch} bf16 decode step",
+                                "bf16")
+            flush = torch.empty(64 * 2**20, device=dev)
+            for route, calls, use in (("tc", pre_calls, "prefill"),
+                                      ("decode", dec_calls, "decode step")):
+                k_ms, p_ms, l_ms, b_ms, b_by, k_host = route_times(
+                    calls, BF16_FLOPS)
+                say(f"[times] flash_attention [{route} route], one {arch} "
+                    f"bf16 {use} ({nl} launches): kernel_ms={k_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} "
+                    f"library_ms={l_ms:.4f} host_enqueue_ms={k_host:.4f}")
+            del pre_calls, dec_calls, recorded_fa, flush
+        say(f"[times] serving {arch} bf16, median of 3: prefill "
+            f"{pre_ms:.3f} ms, decode {tok_ms:.3f} ms/token; peak memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above "
+            f"the {held / 2**30:.2f} GiB held, weights "
+            f"{sizes[1] / 2**30:.2f} GiB) ({smi})")
+        del params, cache, lg, runs, leaves
+        torch.cuda.empty_cache()
+        say(f"[cli] python -m repro_torch.launch.serve --arch {arch} "
+            "--temperature 0:")
+        serve.main(["--arch", arch, "--temperature", "0"])
+        torch.cuda.empty_cache()
+    say(f"[ssm-serve] phase 14: {time.perf_counter() - t14:.1f} s")
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

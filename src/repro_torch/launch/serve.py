@@ -11,7 +11,9 @@ either package's ``save_pytree``. ``--temperature 0`` decodes greedily
 (the parity tests use it: JAX's categorical draws cannot be reproduced);
 above 0, tokens are drawn with ``torch.multinomial`` from a
 ``torch.Generator``. The first token is the argmax of the prefill logits,
-as in the reference. Only the dense and vlm families are ported.
+as in the reference. The dense, vlm, ssm (``--arch mamba2-780m``, whose
+cache holds no K/V, only the SSD's conv tail and state) and hybrid
+(``--arch hymba-1.5b``) families are ported.
 """
 from __future__ import annotations
 
@@ -79,7 +81,11 @@ def generate(params, cfg, prompts: torch.Tensor, steps: int, *,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b",
+                    help="ported: qwen3-1.7b, qwen2-7b, qwen2.5-14b, "
+                    "deepseek-coder-33b (dense), qwen2-vl-2b (vlm), "
+                    "mamba2-780m (ssm), hymba-1.5b (hybrid); the moe and "
+                    "audio archs raise NotImplementedError")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,8 +1,11 @@
-"""Serving path, port of ``repro.models.decode`` for the dense block kind:
-prefill + single-token decode with a ring-buffer KV cache.
+"""Serving path, port of ``repro.models.decode`` for the dense, ssm and
+hybrid block kinds: prefill + single-token decode with a ring-buffer KV
+cache and the SSD's recurrent state.
 
-- ``init_cache``  — allocate the cache (K/V ring buffers stacked over
-  layers).
+- ``init_cache``  — allocate the cache, leaves stacked over layers: K/V
+  ring buffers (dense, hybrid), the SSD's raw conv tail ``ssm_conv`` (L,
+  B, W-1, di+2n) in the compute dtype and state ``ssm_state`` (L, B, H, N,
+  P) in f32 (ssm, hybrid).
 - ``prefill``     — forward over the prompt that also fills the cache.
 - ``decode_step`` — ONE new token against the cache.
 
@@ -14,9 +17,13 @@ and that mask is always a prefix: ``arange(W) < min(pos + 1, W)``. The
 cache keeps ``pos`` as a Python int, so a decode step knows that prefix
 (the kernel's ``kv_len``) without reading the device.
 
+A hybrid block attends and runs the SSD on the same ``ln1`` output and
+averages the two; an ssm block has no ``ln2`` or MLP.
+
 Unlike the reference, which returns a new cache, :func:`decode_step`
-writes the new token's K/V into the cache's buffers in place (a copy of
-the whole cache per token saved) and returns a new dict around them.
+writes the new token's K/V and SSD conv tail and state into the cache's
+buffers in place (a copy of the whole cache per token saved) and returns a
+new dict around them.
 """
 from __future__ import annotations
 
@@ -26,11 +33,12 @@ import torch
 
 from repro_torch.core.units import tree_stack_index
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import mlp_fwd, rms_norm
 from repro_torch.models.transformer import (_embed_tokens, _logits,
                                             _positions_for, _qkv,
-                                            check_ported)
+                                            block_kind, check_ported)
 
 Pytree = Any
 
@@ -41,14 +49,24 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device="cuda") -> Pytree:
-    """Empty cache for ``seq_len`` context; K/V stacked over layers."""
+    """Empty cache for ``seq_len`` context, leaves stacked over layers."""
     check_ported(cfg)
     dt = dtype_of(cfg.compute_dtype)
-    shape = (cfg.num_layers, batch, cache_window(cfg, seq_len),
-             cfg.num_kv_heads, cfg.hd)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    kind = block_kind(cfg)
+    layers = cfg.num_layers
+    cache: Pytree = {"pos": 0}
+    if kind != "ssm":
+        shape = (layers, batch, cache_window(cfg, seq_len),
+                 cfg.num_kv_heads, cfg.hd)
+        cache["k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dt, device=device)
+    if kind in ("ssm", "hybrid"):
+        sc = ssm_mod.init_ssm_cache(cfg, batch, dt, device)
+        cache["ssm_conv"] = sc["conv"].expand(layers, *sc["conv"].shape) \
+            .contiguous()
+        cache["ssm_state"] = sc["state"].expand(
+            layers, *sc["state"].shape).contiguous()
+    return cache
 
 
 def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -63,19 +81,25 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     buffer (oldest entry evicted).
     """
     b, s = tokens.shape
+    kind = block_kind(cfg)
     cache = init_cache(cfg, b, max_len or s, tokens.device)
-    w = cache["k"].shape[2]
     x = _embed_tokens(params, cfg, tokens, embeddings)
     positions = _positions_for(cfg, b, s, tokens.device)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(params["blocks"], l)
         h = rms_norm(x, blk["ln1"])
+        if kind == "ssm":
+            o, sc = ssm_mod.ssd_fwd(blk["ssm"], h, cfg, return_cache=True)
+            _store_ssm(cache, l, sc)
+            x = x + o
+            continue
         q, k, v = _qkv(blk["attn"], cfg, h, positions)
         o = attn.attend(q, k, v, causal=True, window=cfg.sliding_window,
                         flash_attention=flash_attention)
-        x = x + o.reshape(b, s, -1) @ blk["attn"]["wo"]
+        o = o.reshape(b, s, -1) @ blk["attn"]["wo"]
         # keep the last min(s, w) (post-RoPE) keys/values, ring-aligned so
         # that absolute position p sits in slot p mod w
+        w = cache["k"].shape[2]
         if w >= s:
             cache["k"][l, :, :s] = k
             cache["v"][l, :, :s] = v
@@ -83,9 +107,24 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             shift = (s - w) % w
             cache["k"][l] = torch.roll(k[:, s - w:], shifts=shift, dims=1)
             cache["v"][l] = torch.roll(v[:, s - w:], shifts=shift, dims=1)
+        if kind == "hybrid":
+            o2, sc = ssm_mod.ssd_fwd(blk["ssm"], h, cfg, return_cache=True)
+            _store_ssm(cache, l, sc)
+            o = 0.5 * (o + o2)
+        x = x + o
         x = x + mlp_fwd(blk["mlp"], rms_norm(x, blk["ln2"]))
     cache["pos"] = s
     return _logits(params, cfg, x[:, -1, :]), cache
+
+
+def _store_ssm(cache: Pytree, l: int, sc: dict) -> None:
+    """Layer ``l``'s SSD conv tail and state into the stacked buffers."""
+    cache["ssm_conv"][l] = sc["conv"]
+    cache["ssm_state"][l] = sc["state"]
+
+
+def _layer_ssm(cache: Pytree, l: int) -> dict:
+    return {"conv": cache["ssm_conv"][l], "state": cache["ssm_state"][l]}
 
 
 def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -94,20 +133,34 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     """One token. tokens: (B, 1) int. Returns (logits (B, V), cache')."""
     check_ported(cfg)
     b = tokens.shape[0]
+    kind = block_kind(cfg)
     pos = cache["pos"]
-    w = cache["k"].shape[2]
-    slot, n_valid = pos % w, min(pos + 1, w)
     x = _embed_tokens(params, cfg, tokens)
-    positions = _positions_for(cfg, b, 1, tokens.device, offset=pos)
+    if kind != "ssm":
+        w = cache["k"].shape[2]
+        slot, n_valid = pos % w, min(pos + 1, w)
+        positions = _positions_for(cfg, b, 1, tokens.device, offset=pos)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(params["blocks"], l)
         h = rms_norm(x, blk["ln1"])
+        if kind == "ssm":
+            o, sc = ssm_mod.ssd_step(blk["ssm"], h, _layer_ssm(cache, l),
+                                     cfg)
+            _store_ssm(cache, l, sc)
+            x = x + o
+            continue
         q, k, v = _qkv(blk["attn"], cfg, h, positions)
         ck, cv = cache["k"][l], cache["v"][l]
         ck[:, slot] = k[:, 0]
         cv[:, slot] = v[:, 0]
         o = attn.attend(q, ck, cv, causal=False, window=0, kv_len=n_valid,
                         flash_attention=flash_attention)
-        x = x + o.reshape(b, 1, -1) @ blk["attn"]["wo"]
+        o = o.reshape(b, 1, -1) @ blk["attn"]["wo"]
+        if kind == "hybrid":
+            o2, sc = ssm_mod.ssd_step(blk["ssm"], h, _layer_ssm(cache, l),
+                                      cfg)
+            _store_ssm(cache, l, sc)
+            o = 0.5 * (o + o2)
+        x = x + o
         x = x + mlp_fwd(blk["mlp"], rms_norm(x, blk["ln2"]))
     return _logits(params, cfg, x[:, 0, :]), {**cache, "pos": pos + 1}

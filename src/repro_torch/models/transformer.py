@@ -1,5 +1,6 @@
 """Transformer LM, port of ``repro.models.transformer`` for the ``dense``
-block kind (the ``dense`` and ``vlm`` families).
+(the ``dense`` and ``vlm`` families), ``ssm`` (Mamba-2, attention-free) and
+``hybrid`` (attention ∥ SSD in every block) block kinds.
 
 Parameters keep the reference's key paths, shapes and layouts (dense
 weights ``(d_in, d_out)``), so its params cross with
@@ -28,8 +29,14 @@ On the card the attention of every pass, training included, is the flash
 attention kernel (``models/attention.py``); ``flash_attention=`` replaces
 it with a plain function of the same signature.
 
-The ``moe``, ``ssm``, ``hybrid`` and enc-dec (``dec``) kinds are not
-ported yet (ROADMAP Queue 1 item 10) and raise ``NotImplementedError``.
+A block of each kind (the reference's ``_init_block`` / ``_block_fwd``):
+
+    dense:  x + attn(ln1(x)), then + mlp(ln2(x))
+    ssm:    x + ssd(ln1(x))                        (no ln2, no mlp)
+    hybrid: x + 0.5·(attn(h) + ssd(h)), h = ln1(x), then + mlp(ln2(x))
+
+The ``moe`` and enc-dec (``dec``) kinds are not ported yet (ROADMAP Queue
+1 item 10) and raise ``NotImplementedError``.
 
 """
 from __future__ import annotations
@@ -41,12 +48,13 @@ import torch
 from repro_torch.core.partition import leaf_paths, tree_from_paths
 from repro_torch.core.units import tree_stack_index
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import (init_dense, init_embed, init_mlp,
                                        lora_dense, mlp_fwd, rms_norm)
 
 Pytree = Any
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "ssm", "hybrid")
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -62,7 +70,8 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {kind!r} block kind ({cfg.family} family) is "
             "not ported to PyTorch yet (ROADMAP Queue 1 item 10); the port "
-            f"runs {PORTED_KINDS} (the dense and vlm families)")
+            f"runs the {PORTED_KINDS} kinds (the dense, vlm, ssm and hybrid "
+            "families)")
 
 
 # ======================================================================
@@ -88,13 +97,22 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple):
 
 
 def _stack_blocks(gen: torch.Generator, cfg: ModelConfig, device,
-                  depth: int):
-    """A dense block's leaves, each stacked over ``depth`` layers."""
+                  kind: str, depth: int):
+    """A ``kind`` block's leaves, each stacked over ``depth`` layers, with
+    the reference's key paths."""
     dt = dtype_of(cfg.param_dtype)
-    ones = torch.ones((depth, cfg.d_model), dtype=dt, device=device)
-    return {"ln1": ones, "attn": _init_attn(gen, cfg, device, (depth,)),
-            "ln2": ones.clone(),
-            "mlp": init_mlp(gen, cfg, device, lead=(depth,))}
+    lead = (depth,)
+    p: dict = {"ln1": torch.ones((depth, cfg.d_model), dtype=dt,
+                                 device=device)}
+    if kind != "ssm":
+        p["attn"] = _init_attn(gen, cfg, device, lead)
+    if kind in ("ssm", "hybrid"):
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device, lead)
+    if kind == "ssm":
+        return p
+    p["ln2"] = torch.ones((depth, cfg.d_model), dtype=dt, device=device)
+    p["mlp"] = init_mlp(gen, cfg, device, lead=lead)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -110,7 +128,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params: Pytree = {
         "embed": {"tok": init_embed(generator, cfg.vocab_size, cfg.d_model,
                                     dt, device)},
-        "blocks": _stack_blocks(generator, cfg, device, cfg.num_layers),
+        "blocks": _stack_blocks(generator, cfg, device, block_kind(cfg),
+                                cfg.num_layers),
         "final": {"norm": torch.ones((cfg.d_model,), dtype=dt,
                                      device=device)},
     }
@@ -171,10 +190,16 @@ def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True,
 # ======================================================================
 # Block forward (full sequence)
 # ======================================================================
-def _block_fwd(blk, cfg: ModelConfig, x, positions, flash_attention=None):
+def _block_fwd(blk, cfg: ModelConfig, x, positions, kind: str,
+               flash_attention=None):
     h = rms_norm(x, blk["ln1"])
-    x = x + _self_attn(blk["attn"], cfg, h, positions,
-                       flash_attention=flash_attention)
+    if kind == "ssm":
+        return x + ssm_mod.ssd_fwd(blk["ssm"], h, cfg)
+    o = _self_attn(blk["attn"], cfg, h, positions,
+                   flash_attention=flash_attention)
+    if kind == "hybrid":
+        o = 0.5 * (o + ssm_mod.ssd_fwd(blk["ssm"], h, cfg))
+    x = x + o
     h2 = rms_norm(x, blk["ln2"])
     return x + mlp_fwd(blk["mlp"], h2)
 
@@ -220,16 +245,17 @@ class _RecomputeBlock(torch.autograd.Function):
 
 
 def _run_stack(blocks, cfg: ModelConfig, x, positions, flash_attention=None):
+    kind = block_kind(cfg)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(blocks, l)
         if not cfg.remat_blocks:
-            x = _block_fwd(blk, cfg, x, positions, flash_attention)
+            x = _block_fwd(blk, cfg, x, positions, kind, flash_attention)
             continue
         paths, leaves = zip(*leaf_paths(blk))
 
         def fn(x, positions, *leaves, paths=paths):
             return _block_fwd(tree_from_paths(paths, leaves), cfg, x,
-                              positions, flash_attention)
+                              positions, kind, flash_attention)
 
         # every tensor is an argument: a generated vmap rule refuses a
         # closure over a tensor made inside the transforms
@@ -271,7 +297,7 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             embeddings: Optional[torch.Tensor] = None, *,
             flash_attention: Optional[Callable] = None):
     """Full-sequence forward. tokens: (B, S) int -> logits (B, S, V), aux
-    (the MoE balance loss in the reference; 0 for the dense kind).
+    (the MoE balance loss in the reference; 0 for the ported kinds).
     ``flash_attention`` replaces the kernel on CUDA (see
     :func:`repro_torch.models.attention.attend`)."""
     check_ported(cfg)

@@ -4,7 +4,10 @@ engine (against the CPU engine, no host sync in a block, resume bit for
 bit), the serving path through the flash-attention kernels (all three
 routes: tensor-core prefill, split-KV decode, CUDA cores), and LoRA
 fine-tuning through the kernel's differentiable form (``FlashAttentionFn``
-under ``torch.func``, a partitioned round against the CPU, remat blocks).
+under ``torch.func``, a partitioned round against the CPU, remat blocks),
+and the ssm and hybrid kinds (the SSD's chunked form against its
+recurrence, hymba-1.5b's attention shapes on every route, a small hybrid
+and ssm model's serving against the CPU).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -37,6 +40,7 @@ from repro_torch.kernels import uplink as tku  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import decode as tdec  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 
@@ -1156,3 +1160,102 @@ def test_cuda_remat_blocks_round(cuda):
     np.testing.assert_allclose(l1.losses, l0.losses, atol=1e-6, rtol=0)
     for a, b in zip(tree_leaves(p0), tree_leaves(p1)):
         torch.testing.assert_close(a, b, rtol=0, atol=EQUIV_TOL)
+
+
+# -- the ssm and hybrid kinds ------------------------------------------------
+@pytest.fixture
+def no_tf32():
+    """f32 products in f32 (not TF32) for the duration of a test."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("s", [300, 512])
+def test_cuda_ssd_chunked_matches_its_recurrence(cuda, no_tf32, s):
+    """hymba-1.5b's SSD at its widths (d 1600, 50 heads of 64, state 16,
+    chunk 128) in f32 on the card: ssd_fwd (a ragged last chunk at 300,
+    four chunks at 512) against ssd_step token by token from a zero cache,
+    within 1e-4 of max |y|."""
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), param_dtype="float32",
+                              compute_dtype="float32")
+    p = tssm.init_ssm(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    x = torch.randn(2, s, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(s))
+    with torch.inference_mode():
+        y, cache = tssm.ssd_fwd(p, x, cfg, return_cache=True)
+        step = tssm.init_ssm_cache(cfg, 2, torch.float32, cuda)
+        ys = []
+        for t in range(s):
+            o, step = tssm.ssd_step(p, x[:, t:t + 1], step, cfg)
+            ys.append(o)
+    tol = 1e-4 * float(y.abs().max())
+    torch.testing.assert_close(torch.cat(ys, dim=1), y, rtol=0, atol=tol)
+    for key in ("state", "conv"):
+        torch.testing.assert_close(step[key], cache[key], rtol=0,
+                                   atol=1e-4 * float(cache[key].abs().max()))
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("route", ["tc", "decode", "cuda_core"])
+def test_cuda_flash_attention_hymba_shapes(cuda, route):
+    """25 query heads over 5 KV heads (G = 5) at hd 64, as hymba-1.5b
+    attends: a causal prefill on the tensor cores (bf16) and the CUDA
+    cores (f32), and a decode step (G·Sq = 5 rows) over a filled prefix in
+    both dtypes."""
+    if route == "decode":
+        for dtype in ("bf16", "f32"):
+            q, k, v = _bshd(cuda, 2, 1, 25, 5, 600, 64, dtype, 11)
+            for kv_len in (1, 129, 600):
+                _close(ops.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len),
+                       ref.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len), dtype)
+        assert ops.launch_counts()["flash_attention_decode"] == 6
+        return
+    dtype = "bf16" if route == "tc" else "f32"
+    q, k, v = _bshd(cuda, 2, 300, 25, 5, 300, 64, dtype, 12)
+    assert tkf.route(q.dtype, 300, 64) == route
+    _close(ops.flash_attention(q, k, v, causal=True),
+           ref.flash_attention(q, k, v, causal=True), dtype)
+    assert ops.launch_counts()[f"flash_attention_{route}"] == 1
+
+
+@pytest.mark.parametrize("family", ["hybrid", "ssm"])
+def test_cuda_ssm_and_hybrid_serving_match_cpu(cuda, no_tf32, family):
+    """A small model of each kind (the hybrid at G = 5, hd 64) in f32:
+    prefill and 4 decode steps on the card equal forward's logits there
+    and the CPU's; the hybrid launches the kernel once a layer a pass, the
+    ssm kind never."""
+    cfg = ModelConfig(name="t-" + family, family=family, num_layers=2,
+                      d_model=128, num_heads=10, num_kv_heads=2, head_dim=64,
+                      d_ff=256, vocab_size=97, ssm_state=16, ssm_head_dim=32,
+                      ssm_chunk=8)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 97, size=(2, 24)))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, _ = ttf.forward(p, cfg, t)
+            lg, cache = tdec.prefill(p, cfg, t[:, :20], max_len=24)
+            steps = [lg]
+            for i in range(20, 24):
+                lg, cache = tdec.decode_step(p, cfg, t[:, i:i + 1], cache)
+                torch.testing.assert_close(lg, full[:, i], rtol=1e-4,
+                                           atol=1e-4)
+                steps.append(lg)
+        outs[str(dev)] = torch.stack(steps).cpu()
+        assert set(cache) == ({"pos", "ssm_conv", "ssm_state"}
+                              if family == "ssm" else
+                              {"pos", "k", "v", "ssm_conv", "ssm_state"})
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    counts = ops.launch_counts()
+    layers = cfg.num_layers if family == "hybrid" else 0
+    assert counts["flash_attention_cuda_core"] == 2 * layers   # fwd, prefill
+    assert counts["flash_attention_decode"] == 4 * layers
+    assert counts["flash_attention"] == 6 * layers

@@ -1,6 +1,7 @@
 """The port's serving path against the JAX package on the CPU, in f32:
-``forward``, ``prefill`` and ``decode_step`` on the dense configs of
-tests/test_decode_consistency.py plus reduced qwen3-1.7b, with the
+``forward``, ``prefill`` and ``decode_step`` on the dense, vlm, ssm and
+hybrid configs of tests/test_decode_consistency.py plus reduced
+qwen3-1.7b, mamba2-780m and hymba-1.5b, with the
 reference's weights carried across through the bridge; checkpoints written
 by one package and read by the other (bf16 bit for bit); and the serve
 launcher."""
@@ -59,7 +60,12 @@ CASES = {
     "dense-qknorm-bias": mk("dense", qk_norm=True, qkv_bias=True),
     "vlm-mrope": mk("vlm", mrope=True, mrope_sections=(4, 2, 2)),
     "qwen3-1.7b-reduced": reduced_f32("qwen3-1.7b"),
+    "ssm": mk("ssm", ssm_state=8, ssm_head_dim=16, ssm_chunk=8),
+    "hybrid": mk("hybrid", ssm_state=8, ssm_head_dim=16, ssm_chunk=8),
+    "mamba2-780m-reduced": reduced_f32("mamba2-780m"),
+    "hymba-1.5b-reduced": reduced_f32("hymba-1.5b"),
 }
+CACHE_KEYS = ("k", "v", "ssm_conv", "ssm_state")
 
 
 # the reference's entry points, compiled once per config (it is hashable)
@@ -71,6 +77,18 @@ jdecode = jax.jit(jdec.decode_step, static_argnums=1)
 
 def _carry(jparams):
     return params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+
+
+def _assert_caches(tcache, jcache):
+    """Every cache leaf the reference has (K/V, the SSD's conv tail and
+    state), and no other."""
+    keys = [key for key in CACHE_KEYS if key in jcache]
+    assert keys and set(tcache) == set(keys) | {"pos"}
+    for key in keys:
+        assert tcache[key].dtype == getattr(torch, str(jcache[key].dtype))
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **TOL,
+                                   err_msg=key)
 
 
 def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
@@ -87,8 +105,7 @@ def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
     jlg, jcache = jprefill(jparams, jcfg, jt[:, :s], max_len=max_len)
     tlg, tcache = tdec.prefill(tparams, tcfg, tt[:, :s], max_len=max_len)
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
-    np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]),
-                               **TOL)
+    _assert_caches(tcache, jcache)
     assert tcache["pos"] == int(jcache["pos"]) == s
     for t in range(steps):
         jlg, jcache = jdecode(jparams, jcfg, jt[:, s + t:s + t + 1], jcache)
@@ -97,8 +114,7 @@ def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
         np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
         np.testing.assert_allclose(tlg.numpy(), tfull[:, s + t].numpy(),
                                    **TOL)
-    np.testing.assert_allclose(tcache["v"].numpy(), np.asarray(jcache["v"]),
-                               **TOL)
+    _assert_caches(tcache, jcache)
 
 
 @pytest.fixture(autouse=True)
@@ -174,7 +190,17 @@ def test_vlm_embeddings_match_reference():
 def test_greedy_generate_matches_reference_greedy_loop():
     """serve.generate at temperature 0 against the reference's prefill +
     decode loop with argmax, on the same weights and prompts."""
-    jcfg, tcfg = reduced_f32("qwen3-1.7b")
+    _greedy_matches("qwen3-1.7b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_greedy_generate_with_ssm_cache_matches_reference(arch):
+    """The same for the ssm kind (a cache with no K/V) and the hybrid."""
+    _greedy_matches(arch)
+
+
+def _greedy_matches(arch):
+    jcfg, tcfg = reduced_f32(arch)
     jparams = jtf.init_params(jax.random.PRNGKey(4), jcfg)
     tparams = _carry(jparams)
     prompts = np.random.default_rng(4).integers(
@@ -196,8 +222,7 @@ def test_greedy_generate_matches_reference_greedy_loop():
 
 
 def test_unported_kinds_raise():
-    for arch in ("deepseek-moe-16b", "mamba2-780m", "hymba-1.5b",
-                 "seamless-m4t-large-v2"):
+    for arch in ("deepseek-moe-16b", "seamless-m4t-large-v2"):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -285,3 +310,14 @@ def test_serve_launcher_runs_on_cpu():
                                "steps=4 device=cpu")
     assert lines[1].startswith("prefill: ") and "ms/tok" in lines[1]
     assert lines[2].startswith("  seq0: [") and len(lines) == 4
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b"])
+def test_serve_main_runs_ssm_and_hybrid_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                "--temperature", "0", "--batch", "2", "--prompt-len", "20",
+                "--steps", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"arch={arch}-reduced batch=2 prompt=20 "
+                               "steps=3 device=cpu")
+    assert lines[1].startswith("prefill: ") and len(lines) == 4
