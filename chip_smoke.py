@@ -111,7 +111,26 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    memory, and the launches (hymba 32 a prefill, all on the tensor-core
    route, and 32 a decode step, all on the split-KV route; mamba2 none),
    hymba's kernel on its own main-path calls against plain and its times;
-   then the serve launcher once for each.
+   then the serve launcher once for each;
+15. serving deepseek-moe-16b at full width and depth (28 blocks of
+   attention, 16 query over 16 KV heads at hd 128, and 64 routed experts
+   of 1408, top-6, + 2 shared), random weights from seed 0, the same
+   traffic as phase 14; the parameter tree's params, bytes and leaves and
+   the cache's bytes asserted; in f32 (TF32 off) at 4 layers (the f32
+   weights of all 28 take 67.5 GB) and a capacity factor of 11 (no call
+   drops a choice), the prefill and decode logits within 1e-3 of max
+   |logit| of ``forward`` over the same tokens, the greedy tokens equal
+   but at near-ties; at the config's own 1.25, the prefill against
+   ``forward`` over the prompt alone; at one full-width layer ``moe_fwd``
+   against a per-expert loop (``tests/torch_moe_loop.py``) at capacity
+   factors 1.25 and 0.5 (choices must drop), within 1e-4 of max |out| and
+   1e-5 on the balance loss; in bf16, timed: prefill ms and decode ms a
+   token (median of 3), device busy time, idle share and top device ops
+   of one prefill and one decode step, peak memory, the dropped choices
+   a layer of one prefill, the positions' cumulative sum in both layouts,
+   the launches (28 a prefill on the tensor-core route, 28 a decode step
+   on the split-KV route), the kernel on its own main-path calls against
+   plain and its times; then the serve launcher once.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -121,7 +140,8 @@ plain version: ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4
 / 2e-2), a decode sweep (Sq 1, 5, 16; G 1, 2, 7, 8; kv_len 0, 1, a split
 boundary ± 1 and Skv; causal and windowed), ragged and padded tensor-core
 cases, a fully masked case a route, and the full-width prefill and decode
-shapes of qwen3-1.7b and hymba-1.5b (G = 5, hd 64) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
+shapes of qwen3-1.7b, hymba-1.5b (G = 5, hd 64) and deepseek-moe-16b (G =
+1, hd 128) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
 prefill's own calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -206,6 +226,18 @@ SSM_CACHE = {"mamba2-780m": {"ssm_conv": 3_833_856,
                             "ssm_conv": 2_482_176, "ssm_state": 26_214_400}}
 SSD_LENGTHS = (512, 300)            # four chunks; a ragged last chunk
 SSD_RTOL = 1e-4                     # of max |y| (|state|, |conv|)
+# phase 15: serving deepseek-moe-16b at full width
+MOE_ARCH = "deepseek-moe-16b"
+MOE_HEADS = (16, 16, 128)           # query heads, KV heads, hd (G = 1)
+# params, bytes (bf16, with the f32 router) and leaves of the reference's
+# init_params (jax.eval_shape); cfg.param_count() leaves out the norm scales
+MOE_PARAMS = (16_879_568_896, 33_766_477_824, 16)
+MOE_CACHE = {"k": 954_204_160, "v": 954_204_160}   # batch 4, max_len 2080
+MOE_F32_LAYERS = 4          # f32 parity depth: all 28 layers take 67.5 GB
+MOE_NO_DROP_CF = 11.0       # k·cf >= E: every call's capacity covers its T
+MOE_CFS = (1.25, 0.5)       # moe_fwd against the per-expert loop
+MOE_RTOL = 1e-4             # of max |out|, moe_fwd against the loop (f32)
+MOE_AUX_TOL = 1e-5          # the balance loss, against the loop
 APPLY_CALLS = 2000          # calls a turn when timing the host enqueue
 SLEEP_CYCLES = 10_000_000   # ~5 ms of GPU spin: the host enqueues meanwhile
 
@@ -725,6 +757,22 @@ def main():
         q, k, v = (randn((bh, 1, hd), dtype), randn((bkv, skv, hd), dtype),
                    randn((bkv, skv, hd), dtype))
         flash_check(f"hymba decode {(bh, bkv, 1, skv, hd)} kv_len="
+                    f"{SERVE_PROMPT + 1}", q, k, v, dn, causal=False,
+                    kv_len=SERVE_PROMPT + 1)
+    # deepseek-moe-16b's shapes at batch 4: 16 query heads over 16 KV heads
+    # (G = 1), hd 128; a causal prefill and a decode step over 2080 slots
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        bh, bkv, hd = 4 * MOE_HEADS[0], 4 * MOE_HEADS[1], MOE_HEADS[2]
+        q, k, v = (randn((bh, SERVE_PROMPT, hd), dtype),
+                   randn((bkv, SERVE_PROMPT, hd), dtype),
+                   randn((bkv, SERVE_PROMPT, hd), dtype))
+        shape = (bh, bkv, SERVE_PROMPT, SERVE_PROMPT, hd)
+        flash_check(f"deepseek prefill {shape} causal", q, k, v, dn,
+                    causal=True)
+        skv = SERVE_PROMPT + SERVE_STEPS
+        q, k, v = (randn((bh, 1, hd), dtype), randn((bkv, skv, hd), dtype),
+                   randn((bkv, skv, hd), dtype))
+        flash_check(f"deepseek decode {(bh, bkv, 1, skv, hd)} kv_len="
                     f"{SERVE_PROMPT + 1}", q, k, v, dn, causal=False,
                     kv_len=SERVE_PROMPT + 1)
     say(f"[kernel] flash_attention calls a route in this phase: {fa_seen}; "
@@ -2346,6 +2394,252 @@ def main():
         serve.main(["--arch", arch, "--temperature", "0"])
         torch.cuda.empty_cache()
     say(f"[ssm-serve] phase 14: {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. serving full-width deepseek-moe-16b --------------------------
+    from repro_torch.models import moe as moe_mod
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_moe_loop import moe_loop
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    cfg_bf = get_config(MOE_ARCH)
+    nl = cfg_bf.num_layers
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg_bf.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT))).to(dev)
+
+    def serve15(p, cfg, label):
+        """The main path (prefill + SERVE_STEPS greedy decode steps), the
+        launch counts zeroed just before and read just after: one launch a
+        layer a pass, every prefill launch on its dtype's prefill route
+        and every decode launch on the split-KV route."""
+        ops.reset_launch_counts()
+        run = serve.generate(p, cfg, prompts, steps, keep_logits=True)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(flash_attention.ROUTES, 0)
+        want[flash_attention.route(dtype_of(cfg.compute_dtype),
+                                   SERVE_PROMPT, cfg.hd)] += cfg.num_layers
+        want["decode"] += cfg.num_layers * SERVE_STEPS
+        got = {r: counts[f"flash_attention_{r}"] for r in want}
+        say(f"[{label}] prefill {run.prefill_s * 1e3:.3f} ms, decode "
+            f"{run.decode_s_per_token * 1e3:.3f} ms/token; flash_attention "
+            f"launches {counts['flash_attention']}, by route {got} (want "
+            f"{want})")
+        if counts["flash_attention"] != sum(want.values()) or got != want:
+            fail(f"{label}: flash_attention launches {got}, expected {want}")
+        if not all(bool(torch.isfinite(lg).all()) and
+                   lg.shape == (SERVE_BATCH, cfg.vocab_size)
+                   for lg in run.logits):
+            fail(f"{label}: non-finite or mis-shaped logits")
+        return run, got
+
+    # f32 (TF32 off) at reduced depth, for parity: at a capacity factor
+    # under which no call drops a choice, the serving path against forward
+    # over the same tokens; at the config's own, prefill against forward
+    # over the prompt alone (the same tokens, so the same drops)
+    cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
+                                compute_dtype="float32",
+                                num_layers=MOE_F32_LAYERS,
+                                capacity_factor=MOE_NO_DROP_CF)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg32, gen_w.manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    say(f"[moe-serve] {MOE_ARCH}: {nl} layers, d={cfg_bf.d_model}, "
+        f"attention {cfg_bf.num_heads} over {cfg_bf.num_kv_heads} KV heads "
+        f"at hd {cfg_bf.hd}, {cfg_bf.num_experts} routed experts of "
+        f"{cfg_bf.moe_d_ff} (top-{cfg_bf.moe_top_k}) + "
+        f"{cfg_bf.num_shared_experts} shared, capacity factor "
+        f"{cfg_bf.capacity_factor} (cap "
+        f"{moe_mod._capacity(SERVE_BATCH * SERVE_PROMPT, cfg_bf)} a "
+        f"prefill, {moe_mod._capacity(SERVE_BATCH, cfg_bf)} a decode "
+        f"step), vocab {cfg_bf.vocab_size}; batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_STEPS} decode steps; f32 at "
+        f"{MOE_F32_LAYERS} layers, init {time.perf_counter() - t0:.2f} s")
+    run32, n32 = serve15(params, cfg32, f"{MOE_ARCH} f32 x{MOE_F32_LAYERS} "
+                         f"cf {MOE_NO_DROP_CF}")
+    for r in flash_attention.ROUTES:
+        launches[r] += n32[r]
+    with torch.inference_mode():
+        seq = torch.cat([prompts, run32.tokens[:, :SERVE_STEPS]], dim=1)
+        full = tf.forward(params, cfg32, seq)[0][:, SERVE_PROMPT - 1:]
+        got = torch.stack(run32.logits, dim=1)              # (B, steps, V)
+        tol = SERVE_RTOL * float(got.abs().max())
+        d_full = float((got - full).abs().max())
+        top2 = full.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        same = full.argmax(dim=-1) == run32.tokens
+        bad = (~same & (gap >= tol)).any(dim=0)
+        del seq, full, got, top2
+        cfg_own = dataclasses.replace(cfg32,
+                                      capacity_factor=cfg_bf.capacity_factor)
+        lg, cache = dec.prefill(params, cfg_own, prompts, max_len=max_len)
+        del cache
+        want_lg = tf.forward(params, cfg_own, prompts)[0][:, -1]
+        tol_own = SERVE_RTOL * float(want_lg.abs().max())
+        d_own = float((lg - want_lg).abs().max())
+        del lg, want_lg
+    say(f"[moe-serve f32] max |logit| {tol / SERVE_RTOL:.4f}; cf "
+        f"{MOE_NO_DROP_CF}: prefill + decode vs forward max_abs_diff "
+        f"{d_full:.3e} (limit {tol:.3e} = {SERVE_RTOL} x max |logit|), "
+        f"greedy tokens equal at {int(same.all(dim=0).sum())} of {steps} "
+        f"steps, steps with a top-2 gap below the limit: "
+        f"{(gap < tol).any(dim=0).nonzero().flatten().tolist()}; cf "
+        f"{cfg_bf.capacity_factor}: prefill vs forward over the prompt "
+        f"max_abs_diff {d_own:.3e} (limit {tol_own:.3e})")
+    if d_full > tol or bool(bad.any()) or d_own > tol_own:
+        fail(f"{MOE_ARCH} f32: the serving path disagrees with forward")
+    del gap, same, bad, run32
+
+    # moe_fwd against the per-expert loop, one full-width layer, T = B·S
+    moe_p = tree_stack_index(params["blocks"], 0)["moe"]
+    x = randn((SERVE_BATCH, SERVE_PROMPT, cfg32.d_model))
+    for cf in MOE_CFS:
+        c = dataclasses.replace(cfg32, capacity_factor=cf)
+        with torch.inference_mode():
+            out, aux = moe_mod.moe_fwd(moe_p, x, c)
+            want, want_aux, dropped = moe_loop(moe_p, x, c)
+        rel = float((out - want).abs().max() / want.abs().max())
+        d_aux = abs(float(aux) - float(want_aux))
+        t_ = SERVE_BATCH * SERVE_PROMPT
+        say(f"[moe-serve f32 layer] layer 0, T = {t_}, capacity factor "
+            f"{cf} (cap {moe_mod._capacity(t_, c)}): moe_fwd against the "
+            f"per-expert loop, max_abs_diff / max |ref| {rel:.3e} (limit "
+            f"{MOE_RTOL}), aux {float(aux):.6f} vs {float(want_aux):.6f} "
+            f"(diff {d_aux:.3e}, limit {MOE_AUX_TOL}); dropped choices "
+            f"{dropped} of {t_ * c.moe_top_k}")
+        if rel > MOE_RTOL or d_aux > MOE_AUX_TOL or (cf < 1 and not dropped):
+            fail(f"{MOE_ARCH}: moe_fwd disagrees with the per-expert loop "
+                 f"at capacity factor {cf}")
+    del params, moe_p, x, out, want
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth, timed
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    sizes = (sum(l_.numel() for l_ in leaves),
+             sum(l_.numel() * l_.element_size() for l_ in leaves),
+             len(leaves))
+    say(f"[moe-serve bf16] params {sizes[0]:,} = {sizes[1]:,} B over "
+        f"{sizes[2]} leaves (want {MOE_PARAMS}; cfg.param_count() "
+        f"{cfg_bf.param_count():,}); init {init_s:.2f} s")
+    if sizes != MOE_PARAMS:
+        fail(f"{MOE_ARCH}: the parameter tree holds {sizes}, expected "
+             f"{MOE_PARAMS}")
+    serve.generate(params, cfg_bf, prompts[:, :256], 4)            # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve15(params, cfg_bf, f"{MOE_ARCH} bf16 #{i}")
+            for i in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, n_ in runs:
+        for r in flash_attention.ROUTES:
+            launches[r] += n_[r]
+    pre_ms = statistics.median(r_.prefill_s * 1e3 for r_, _ in runs)
+    tok_ms = statistics.median(r_.decode_s_per_token * 1e3 for r_, _ in runs)
+    with torch.inference_mode():
+        (lg, cache), busy_pre, top_pre = profile_once(
+            lambda: dec.prefill(params, cfg_bf, prompts, max_len=max_len))
+        _, busy_dec, top_dec = profile_once(
+            lambda: dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None],
+                                    cache))
+    cache_b = {n_: t_.numel() * t_.element_size()
+               for n_, t_ in cache.items() if n_ != "pos"}
+    say(f"[moe-serve bf16] cache at max_len {max_len}: "
+        + ", ".join(f"{n_} {tuple(cache[n_].shape)} {cache[n_].dtype} "
+                    f"{b_:,} B" for n_, b_ in cache_b.items())
+        + f" (want {MOE_CACHE})")
+    if cache_b != MOE_CACHE:
+        fail(f"{MOE_ARCH}: cache sizes {cache_b}, expected {MOE_CACHE}")
+    del cache
+    say(f"[profile] {MOE_ARCH} one bf16 prefill: device busy {busy_pre:.3f} "
+        f"ms, idle share {1 - busy_pre / pre_ms:.4f}; top device ops: "
+        f"{top_pre}")
+    say(f"[profile] {MOE_ARCH} one bf16 decode step: device busy "
+        f"{busy_dec:.3f} ms, idle share {1 - busy_dec / tok_ms:.4f}; top "
+        f"device ops: {top_dec}")
+
+    # the dropped choices a layer of one bf16 prefill: moe_fwd wrapped to
+    # count each layer's choices at or past its capacity (device counts,
+    # read once after the prefill)
+    drops, moe_fwd = [], moe_mod.moe_fwd
+
+    def counting_moe_fwd(p, x, cfg):
+        t_ = x.shape[0] * x.shape[1]
+        cap = moe_mod._capacity(t_, cfg)
+        pos = moe_mod.route(p, x.reshape(t_, -1), cfg, cap)[2]
+        drops.append((pos >= cap).sum())
+        return moe_fwd(p, x, cfg)
+
+    moe_mod.moe_fwd = counting_moe_fwd
+    try:
+        with torch.inference_mode():
+            dec.prefill(params, cfg_bf, prompts, max_len=max_len)
+    finally:
+        moe_mod.moe_fwd = moe_fwd
+    drops = torch.stack(drops).tolist()
+    say(f"[moe-serve bf16] dropped choices a layer in one prefill (cap "
+        f"{moe_mod._capacity(SERVE_BATCH * SERVE_PROMPT, cfg_bf)} an "
+        f"expert, {SERVE_BATCH * SERVE_PROMPT * cfg_bf.moe_top_k} choices): "
+        f"{drops}, {sum(drops)} in all; a decode step drops none (cap "
+        f"{moe_mod._capacity(SERVE_BATCH, cfg_bf)} >= {SERVE_BATCH} tokens)")
+
+    # the positions' cumulative sum at the prefill's T·k = 49,152 choices:
+    # over the (E, T·k) one-hot along its contiguous axis, as route runs
+    # it, and over the (T·k, E) one-hot of the reference's layout
+    t_ = SERVE_BATCH * SERVE_PROMPT
+    eidx = moe_mod.route(tree_stack_index(params["blocks"], 0)["moe"],
+                         randn((t_, cfg_bf.d_model), torch.bfloat16), cfg_bf,
+                         moe_mod._capacity(t_, cfg_bf))[1].reshape(-1)
+    experts = torch.arange(cfg_bf.num_experts, device=dev)
+    by_expert = (eidx[None, :] == experts[:, None]).to(torch.int32)
+    by_choice = by_expert.T.contiguous()
+    flush = torch.empty(64 * 2**20, device=dev)
+    scan_ms = [device_ms(lambda: torch.cumsum(oh, dim=d_, dtype=torch.int32),
+                         reps=5)[0]
+               for oh, d_ in ((by_expert, 1), (by_choice, 0))]
+    say(f"[times] moe positions' cumulative sum, one layer of a bf16 "
+        f"prefill: over (E, T*k) = {tuple(by_expert.shape)} along dim 1 "
+        f"{scan_ms[0]:.4f} ms (route's), over (T*k, E) along dim 0 "
+        f"{scan_ms[1]:.4f} ms; x {nl} layers: {scan_ms[0] * nl:.3f} / "
+        f"{scan_ms[1] * nl:.3f} ms a prefill")
+    del eidx, experts, by_expert, by_choice, flush
+
+    # the kernel on the main path's own calls against plain, and its time
+    # a use at deepseek's shapes
+    recorded_fa = []
+    with torch.inference_mode():
+        lg, cache = dec.prefill(params, cfg_bf, prompts, max_len=max_len,
+                                flash_attention=recording_fa)
+        pre_calls = recorded_fa[:]
+        dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None], cache,
+                        flash_attention=recording_fa)
+        dec_calls = recorded_fa[len(pre_calls):]
+        main_path_check(pre_calls, f"{MOE_ARCH} bf16 prefill", "bf16")
+        main_path_check(dec_calls, f"{MOE_ARCH} bf16 decode step", "bf16")
+    del cache, lg
+    flush = torch.empty(64 * 2**20, device=dev)
+    for route, calls, use in (("tc", pre_calls, "prefill"),
+                              ("decode", dec_calls, "decode step")):
+        k_ms, p_ms, l_ms, b_ms, b_by, k_host = route_times(calls, BF16_FLOPS)
+        say(f"[times] flash_attention [{route} route], one {MOE_ARCH} bf16 "
+            f"{use} ({nl} launches): kernel_ms={k_ms:.4f} bound_ms="
+            f"{b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} library_ms="
+            f"{l_ms:.4f} host_enqueue_ms={k_host:.4f}")
+    del pre_calls, dec_calls, recorded_fa, flush
+    say(f"[times] serving {MOE_ARCH} bf16, median of 3: prefill "
+        f"{pre_ms:.3f} ms, decode {tok_ms:.3f} ms/token; peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held, weights {sizes[1] / 2**30:.2f} GiB) "
+        f"({smi})")
+    del params, runs, leaves
+    torch.cuda.empty_cache()
+    say(f"[cli] python -m repro_torch.launch.serve --arch {MOE_ARCH} "
+        "--temperature 0:")
+    serve.main(["--arch", MOE_ARCH, "--temperature", "0"])
+    torch.cuda.empty_cache()
+    say(f"[moe-serve] phase 15: {time.perf_counter() - t15:.1f} s")
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

@@ -11,9 +11,11 @@ either package's ``save_pytree``. ``--temperature 0`` decodes greedily
 (the parity tests use it: JAX's categorical draws cannot be reproduced);
 above 0, tokens are drawn with ``torch.multinomial`` from a
 ``torch.Generator``. The first token is the argmax of the prefill logits,
-as in the reference. The dense, vlm, ssm (``--arch mamba2-780m``, whose
-cache holds no K/V, only the SSD's conv tail and state) and hybrid
-(``--arch hymba-1.5b``) families are ported.
+as in the reference. The dense, vlm, moe (``--arch deepseek-moe-16b``:
+33.8 GB of bf16 weights, which one 80 GB card holds; llama4-maverick's
+1.57 TB fits no single card), ssm (``--arch mamba2-780m``, whose cache
+holds no K/V, only the SSD's conv tail and state) and hybrid (``--arch
+hymba-1.5b``) families are ported.
 """
 from __future__ import annotations
 
@@ -84,8 +86,9 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen3-1.7b",
                     help="ported: qwen3-1.7b, qwen2-7b, qwen2.5-14b, "
                     "deepseek-coder-33b (dense), qwen2-vl-2b (vlm), "
-                    "mamba2-780m (ssm), hymba-1.5b (hybrid); the moe and "
-                    "audio archs raise NotImplementedError")
+                    "deepseek-moe-16b, llama4-maverick-400b-a17b (moe), "
+                    "mamba2-780m (ssm), hymba-1.5b (hybrid); the audio "
+                    "arch raises NotImplementedError")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,9 +1,9 @@
-"""Serving path, port of ``repro.models.decode`` for the dense, ssm and
-hybrid block kinds: prefill + single-token decode with a ring-buffer KV
-cache and the SSD's recurrent state.
+"""Serving path, port of ``repro.models.decode`` for the dense, moe, ssm
+and hybrid block kinds: prefill + single-token decode with a ring-buffer
+KV cache and the SSD's recurrent state.
 
 - ``init_cache``  — allocate the cache, leaves stacked over layers: K/V
-  ring buffers (dense, hybrid), the SSD's raw conv tail ``ssm_conv`` (L,
+  ring buffers (dense, moe, hybrid), the SSD's raw conv tail ``ssm_conv`` (L,
   B, W-1, di+2n) in the compute dtype and state ``ssm_state`` (L, B, H, N,
   P) in f32 (ssm, hybrid).
 - ``prefill``     — forward over the prompt that also fills the cache.
@@ -18,7 +18,10 @@ cache keeps ``pos`` as a Python int, so a decode step knows that prefix
 (the kernel's ``kv_len``) without reading the device.
 
 A hybrid block attends and runs the SSD on the same ``ln1`` output and
-averages the two; an ssm block has no ``ln2`` or MLP.
+averages the two; an ssm block has no ``ln2`` or MLP; an moe block's
+feed-forward is ``moe_fwd`` with its balance loss dropped, its capacity
+counted over the call's tokens (B·S at prefill, B at a decode step), as in
+the reference.
 
 Unlike the reference, which returns a new cache, :func:`decode_step`
 writes the new token's K/V and SSD conv tail and state into the cache's
@@ -35,8 +38,8 @@ from repro_torch.core.units import tree_stack_index
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, dtype_of
-from repro_torch.models.layers import mlp_fwd, rms_norm
-from repro_torch.models.transformer import (_embed_tokens, _logits,
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.transformer import (_embed_tokens, _ffn, _logits,
                                             _positions_for, _qkv,
                                             block_kind, check_ported)
 
@@ -112,7 +115,7 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             _store_ssm(cache, l, sc)
             o = 0.5 * (o + o2)
         x = x + o
-        x = x + mlp_fwd(blk["mlp"], rms_norm(x, blk["ln2"]))
+        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
     cache["pos"] = s
     return _logits(params, cfg, x[:, -1, :]), cache
 
@@ -162,5 +165,5 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             _store_ssm(cache, l, sc)
             o = 0.5 * (o + o2)
         x = x + o
-        x = x + mlp_fwd(blk["mlp"], rms_norm(x, blk["ln2"]))
+        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
     return _logits(params, cfg, x[:, 0, :]), {**cache, "pos": pos + 1}

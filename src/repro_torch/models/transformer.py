@@ -1,6 +1,7 @@
 """Transformer LM, port of ``repro.models.transformer`` for the ``dense``
-(the ``dense`` and ``vlm`` families), ``ssm`` (Mamba-2, attention-free) and
-``hybrid`` (attention ∥ SSD in every block) block kinds.
+(the ``dense`` and ``vlm`` families), ``moe`` (routed experts in place of
+the MLP), ``ssm`` (Mamba-2, attention-free) and ``hybrid`` (attention ∥
+SSD in every block) block kinds.
 
 Parameters keep the reference's key paths, shapes and layouts (dense
 weights ``(d_in, d_out)``), so its params cross with
@@ -32,11 +33,14 @@ it with a plain function of the same signature.
 A block of each kind (the reference's ``_init_block`` / ``_block_fwd``):
 
     dense:  x + attn(ln1(x)), then + mlp(ln2(x))
+    moe:    x + attn(ln1(x)), then + moe(ln2(x))   (no mlp; aux the
+            experts' balance loss, summed over the layers in f32)
     ssm:    x + ssd(ln1(x))                        (no ln2, no mlp)
     hybrid: x + 0.5·(attn(h) + ssd(h)), h = ln1(x), then + mlp(ln2(x))
 
-The ``moe`` and enc-dec (``dec``) kinds are not ported yet (ROADMAP Queue
-1 item 10) and raise ``NotImplementedError``.
+A block returns ``(x, aux)``, aux 0 in f32 for the kinds without experts.
+The enc-dec (``dec``) kind is not ported yet (ROADMAP Queue 1 item 10) and
+raises ``NotImplementedError``.
 
 """
 from __future__ import annotations
@@ -48,13 +52,14 @@ import torch
 from repro_torch.core.partition import leaf_paths, tree_from_paths
 from repro_torch.core.units import tree_stack_index
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import (init_dense, init_embed, init_mlp,
                                        lora_dense, mlp_fwd, rms_norm)
 
 Pytree = Any
-PORTED_KINDS = ("dense", "ssm", "hybrid")
+PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -70,8 +75,8 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {kind!r} block kind ({cfg.family} family) is "
             "not ported to PyTorch yet (ROADMAP Queue 1 item 10); the port "
-            f"runs the {PORTED_KINDS} kinds (the dense, vlm, ssm and hybrid "
-            "families)")
+            f"runs the {PORTED_KINDS} kinds (the dense, vlm, moe, ssm and "
+            "hybrid families)")
 
 
 # ======================================================================
@@ -111,7 +116,10 @@ def _stack_blocks(gen: torch.Generator, cfg: ModelConfig, device,
     if kind == "ssm":
         return p
     p["ln2"] = torch.ones((depth, cfg.d_model), dtype=dt, device=device)
-    p["mlp"] = init_mlp(gen, cfg, device, lead=lead)
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, device, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device, lead=lead)
     return p
 
 
@@ -190,25 +198,35 @@ def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True,
 # ======================================================================
 # Block forward (full sequence)
 # ======================================================================
+def _ffn(blk, cfg: ModelConfig, h, kind: str):
+    """The block's feed-forward on ``h = ln2(x)``: (out, aux), aux the
+    experts' balance loss for the moe kind, None for an MLP."""
+    if kind == "moe":
+        return moe_mod.moe_fwd(blk["moe"], h, cfg)
+    return mlp_fwd(blk["mlp"], h), None
+
+
 def _block_fwd(blk, cfg: ModelConfig, x, positions, kind: str,
                flash_attention=None):
     h = rms_norm(x, blk["ln1"])
     if kind == "ssm":
-        return x + ssm_mod.ssd_fwd(blk["ssm"], h, cfg)
+        return (x + ssm_mod.ssd_fwd(blk["ssm"], h, cfg),
+                torch.zeros((), device=x.device))
     o = _self_attn(blk["attn"], cfg, h, positions,
                    flash_attention=flash_attention)
     if kind == "hybrid":
         o = 0.5 * (o + ssm_mod.ssd_fwd(blk["ssm"], h, cfg))
     x = x + o
-    h2 = rms_norm(x, blk["ln2"])
-    return x + mlp_fwd(blk["mlp"], h2)
+    out, aux = _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)
+    return x + out, torch.zeros((), device=x.device) if aux is None else aux
 
 
 class _RecomputeBlock(torch.autograd.Function):
-    """``apply(fn, *tensors) = fn(*tensors)``, keeping only ``tensors`` (the
-    block's input and its weights, which stay alive anyway) for the
-    backward, which recomputes ``fn`` under ``torch.func.vjp`` with respect
-    to the inputs that need a gradient. ``generate_vmap_rule`` lets
+    """``apply(fn, *tensors) = fn(*tensors)`` (a block's ``(x, aux)``),
+    keeping only ``tensors`` (the block's input and its weights, which stay
+    alive anyway) for the backward, which recomputes ``fn`` under
+    ``torch.func.vjp`` with respect to the inputs that need a gradient and
+    takes both outputs' cotangents. ``generate_vmap_rule`` lets
     ``torch.func.vmap`` batch forward and backward as plain ops."""
 
     generate_vmap_rule = True
@@ -223,7 +241,7 @@ class _RecomputeBlock(torch.autograd.Function):
         ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
-    def backward(ctx, dout):
+    def backward(ctx, dx, daux):
         # detached: the recompute is not itself recorded for a second
         # derivative (torch.func.grad runs its backward with
         # create_graph=True, which would otherwise keep every recomputed
@@ -239,17 +257,20 @@ class _RecomputeBlock(torch.autograd.Function):
 
         _, vjp = torch.func.vjp(part, *(tensors[i] for i in need))
         grads = [None] * len(tensors)
-        for i, g in zip(need, vjp(dout.detach())):
+        for i, g in zip(need, vjp((dx.detach(), daux.detach()))):
             grads[i] = g
         return (None, *grads)
 
 
 def _run_stack(blocks, cfg: ModelConfig, x, positions, flash_attention=None):
+    """(x, aux): the blocks in order, aux summed over the layers in f32."""
     kind = block_kind(cfg)
+    aux = torch.zeros((), device=x.device)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(blocks, l)
         if not cfg.remat_blocks:
-            x = _block_fwd(blk, cfg, x, positions, kind, flash_attention)
+            x, a = _block_fwd(blk, cfg, x, positions, kind, flash_attention)
+            aux = aux + a
             continue
         paths, leaves = zip(*leaf_paths(blk))
 
@@ -259,8 +280,9 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, flash_attention=None):
 
         # every tensor is an argument: a generated vmap rule refuses a
         # closure over a tensor made inside the transforms
-        x = _RecomputeBlock.apply(fn, x, positions, *leaves)
-    return x
+        x, a = _RecomputeBlock.apply(fn, x, positions, *leaves)
+        aux = aux + a
+    return x, aux
 
 
 # ======================================================================
@@ -297,7 +319,8 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             embeddings: Optional[torch.Tensor] = None, *,
             flash_attention: Optional[Callable] = None):
     """Full-sequence forward. tokens: (B, S) int -> logits (B, S, V), aux
-    (the MoE balance loss in the reference; 0 for the ported kinds).
+    (the experts' balance loss summed over the layers, f32; 0 for the kinds
+    without experts).
     ``flash_attention`` replaces the kernel on CUDA (see
     :func:`repro_torch.models.attention.attend`)."""
     check_ported(cfg)
@@ -307,8 +330,8 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens, embeddings)
     pos = _positions_for(cfg, b, s, tokens.device)
-    x = _run_stack(params["blocks"], cfg, x, pos, flash_attention)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _run_stack(params["blocks"], cfg, x, pos, flash_attention)
+    return _logits(params, cfg, x), aux
 
 
 # ======================================================================

@@ -5,9 +5,12 @@ bit), the serving path through the flash-attention kernels (all three
 routes: tensor-core prefill, split-KV decode, CUDA cores), and LoRA
 fine-tuning through the kernel's differentiable form (``FlashAttentionFn``
 under ``torch.func``, a partitioned round against the CPU, remat blocks),
-and the ssm and hybrid kinds (the SSD's chunked form against its
+the ssm and hybrid kinds (the SSD's chunked form against its
 recurrence, hymba-1.5b's attention shapes on every route, a small hybrid
-and ssm model's serving against the CPU).
+and ssm model's serving against the CPU), and the moe kind (``moe_fwd``
+against a per-expert loop with choices dropped and no host sync,
+deepseek-moe-16b's attention shapes, a small moe model's serving and its
+``vmap(grad)`` of ``lm_loss`` against the CPU).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -40,9 +43,11 @@ from repro_torch.kernels import uplink as tku  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import decode as tdec  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from torch_moe_loop import moe_loop  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -1259,3 +1264,118 @@ def test_cuda_ssm_and_hybrid_serving_match_cpu(cuda, no_tf32, family):
     assert counts["flash_attention_cuda_core"] == 2 * layers   # fwd, prefill
     assert counts["flash_attention_decode"] == 4 * layers
     assert counts["flash_attention"] == 6 * layers
+
+
+# -- the moe kind -------------------------------------------------------------
+TINY_MOE = dict(name="t-moe", family="moe", num_layers=2, d_model=128,
+                num_heads=4, num_kv_heads=4, head_dim=64, d_ff=0,
+                vocab_size=97, num_experts=4, moe_top_k=2, moe_d_ff=64,
+                num_shared_experts=1, capacity_factor=8.0,
+                param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_cuda_moe_fwd_matches_the_loop_without_a_sync(cuda, no_tf32, cf):
+    """deepseek-moe-16b's layer at its widths (64 experts of 1408, top-6,
+    2 shared) in f32 over 4 × 256 tokens, enqueued under
+    ``set_sync_debug_mode("error")`` (a host sync raises), against the
+    per-expert loop within 1e-4 of max |out|; at 0.5 choices must drop."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              param_dtype="float32", compute_dtype="float32",
+                              capacity_factor=cf)
+    p = tmoe.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg,
+                      cuda)
+    x = torch.randn(4, 256, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = tmoe.moe_fwd(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, want_aux, dropped = moe_loop(p, x, cfg)
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-5)
+    if cf == 0.5:
+        assert dropped > 0
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("route", ["tc", "decode"])
+def test_cuda_flash_attention_deepseek_shapes(cuda, route):
+    """16 query heads over 16 KV heads (G = 1) at hd 128, as
+    deepseek-moe-16b attends: a causal bf16 prefill on the tensor cores,
+    and a decode step over a filled prefix in both dtypes."""
+    if route == "decode":
+        for dtype in ("bf16", "f32"):
+            q, k, v = _bshd(cuda, 2, 1, 16, 16, 600, 128, dtype, 13)
+            for kv_len in (1, 129, 600):
+                _close(ops.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len),
+                       ref.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len), dtype)
+        assert ops.launch_counts()["flash_attention_decode"] == 6
+        return
+    q, k, v = _bshd(cuda, 2, 300, 16, 16, 300, 128, "bf16", 14)
+    assert tkf.route(q.dtype, 300, 128) == "tc"
+    _close(ops.flash_attention(q, k, v, causal=True),
+           ref.flash_attention(q, k, v, causal=True), "bf16")
+    assert ops.launch_counts()["flash_attention_tc"] == 1
+
+
+def test_cuda_moe_serving_matches_cpu(cuda, no_tf32):
+    """A small moe model (G = 1, hd 64, a capacity no call fills) in f32:
+    prefill and 4 decode steps on the card equal forward's logits there
+    and the CPU's, aux too; the kernel launches once a layer a pass."""
+    cfg = ModelConfig(**TINY_MOE)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 97, size=(2, 24)))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        t = toks.to(dev)
+        with torch.inference_mode():
+            full, aux = ttf.forward(p, cfg, t)
+            lg, cache = tdec.prefill(p, cfg, t[:, :20], max_len=24)
+            steps = [lg]
+            for i in range(20, 24):
+                lg, cache = tdec.decode_step(p, cfg, t[:, i:i + 1], cache)
+                torch.testing.assert_close(lg, full[:, i], rtol=1e-4,
+                                           atol=1e-4)
+                steps.append(lg)
+        outs[str(dev)] = (torch.stack(steps).cpu(), aux.cpu())
+        assert set(cache) == {"pos", "k", "v"}
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=1e-5,
+                               atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_cuda_core"] == 2 * cfg.num_layers
+    assert counts["flash_attention_decode"] == 4 * cfg.num_layers
+    assert counts["flash_attention"] == 6 * cfg.num_layers
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_moe_vmap_grad_matches_cpu(cuda, no_tf32, remat):
+    """vmap(grad_and_value) of the moe lm_loss over 2 clients' batches
+    (the capacity factor 1.25: choices drop) on the card through
+    ``FlashAttentionFn`` against the CPU: losses within 1e-5, every leaf's
+    gradient within 2e-5."""
+    cfg = ModelConfig(**{**TINY_MOE, "capacity_factor": 1.25,
+                         "remat_blocks": remat})
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {n: torch.from_numpy(rng.integers(0, 97, size=(2, 2, 16)))
+             for n in ("tokens", "labels")}
+    fn = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: ttf.lm_loss(p, cfg, b)), in_dims=(None, 0))
+    g_c, l_c = fn(params, batch)
+    g_g, l_g = fn(tree_map(lambda l: l.to(cuda), params),
+                  tree_map(lambda l: l.to(cuda), batch))
+    torch.testing.assert_close(l_g.cpu(), l_c, rtol=0, atol=1e-5)
+    for a, c in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=EQUIV_TOL)
+    assert ops.launch_counts()["flash_attention"] == \
+        cfg.num_layers * (2 if remat else 1)

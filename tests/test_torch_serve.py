@@ -1,8 +1,9 @@
 """The port's serving path against the JAX package on the CPU, in f32:
-``forward``, ``prefill`` and ``decode_step`` on the dense, vlm, ssm and
-hybrid configs of tests/test_decode_consistency.py plus reduced
-qwen3-1.7b, mamba2-780m and hymba-1.5b, with the
-reference's weights carried across through the bridge; checkpoints written
+``forward`` (logits and aux), ``prefill`` and ``decode_step`` on the
+dense, vlm, moe, ssm and hybrid configs of
+tests/test_decode_consistency.py plus reduced qwen3-1.7b,
+deepseek-moe-16b, llama4-maverick-400b-a17b, mamba2-780m and hymba-1.5b,
+with the reference's weights carried across through the bridge; checkpoints written
 by one package and read by the other (bf16 bit for bit); and the serve
 launcher."""
 import dataclasses
@@ -60,12 +61,28 @@ CASES = {
     "dense-qknorm-bias": mk("dense", qk_norm=True, qkv_bias=True),
     "vlm-mrope": mk("vlm", mrope=True, mrope_sections=(4, 2, 2)),
     "qwen3-1.7b-reduced": reduced_f32("qwen3-1.7b"),
+    # tests/test_decode_consistency.py:26-27: a capacity no call can fill
+    "moe": mk("moe", num_experts=4, moe_top_k=2, moe_d_ff=32,
+              num_shared_experts=1, d_ff=0, capacity_factor=8.0),
+    "deepseek-moe-16b-reduced": reduced_f32("deepseek-moe-16b"),
+    "llama4-maverick-400b-a17b-reduced": reduced_f32(
+        "llama4-maverick-400b-a17b"),
     "ssm": mk("ssm", ssm_state=8, ssm_head_dim=16, ssm_chunk=8),
     "hybrid": mk("hybrid", ssm_state=8, ssm_head_dim=16, ssm_chunk=8),
     "mamba2-780m-reduced": reduced_f32("mamba2-780m"),
     "hymba-1.5b-reduced": reduced_f32("hymba-1.5b"),
 }
 CACHE_KEYS = ("k", "v", "ssm_conv", "ssm_state")
+AUX_TOL = 1e-5
+
+
+def never_drops(cfg):
+    """No call can drop an expert choice: the capacity covers every token
+    of any call (``k · capacity_factor >= E``), or the model has no
+    experts. Only then does a decode step (capacity over B tokens) compute
+    what ``forward`` (over B·S) computes at the same position."""
+    return cfg.family != "moe" or \
+        cfg.moe_top_k * cfg.capacity_factor >= cfg.num_experts
 
 
 # the reference's entry points, compiled once per config (it is hashable)
@@ -92,19 +109,26 @@ def _assert_caches(tcache, jcache):
 
 
 def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
-    """forward, prefill and ``steps`` decode steps of both packages on the
-    same weights and tokens."""
+    """forward (and its aux), prefill and ``steps`` decode steps of both
+    packages on the same weights and tokens; prefill against forward over
+    the prompt alone (the same tokens, so the same expert choices); and
+    decode against forward at the same position where no call can drop an
+    expert choice."""
     jparams = jtf.init_params(jax.random.PRNGKey(seed), jcfg)
     tparams = _carry(jparams)
     jt, tt = jnp.asarray(toks), torch.from_numpy(toks).long()
-    jfull, _ = jforward(jparams, jcfg, jt)
+    jfull, jaux = jforward(jparams, jcfg, jt)
     tfull, aux = ttf.forward(tparams, tcfg, tt)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert abs(float(aux) - float(jaux)) <= AUX_TOL
     np.testing.assert_allclose(tfull.numpy(), np.asarray(jfull), **TOL)
 
     jlg, jcache = jprefill(jparams, jcfg, jt[:, :s], max_len=max_len)
     tlg, tcache = tdec.prefill(tparams, tcfg, tt[:, :s], max_len=max_len)
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
+    np.testing.assert_allclose(
+        tlg.numpy(), ttf.forward(tparams, tcfg, tt[:, :s])[0][:, -1].numpy(),
+        **TOL)
     _assert_caches(tcache, jcache)
     assert tcache["pos"] == int(jcache["pos"]) == s
     for t in range(steps):
@@ -112,8 +136,9 @@ def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
         tlg, tcache = tdec.decode_step(tparams, tcfg, tt[:, s + t:s + t + 1],
                                        tcache)
         np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
-        np.testing.assert_allclose(tlg.numpy(), tfull[:, s + t].numpy(),
-                                   **TOL)
+        if never_drops(tcfg):
+            np.testing.assert_allclose(tlg.numpy(), tfull[:, s + t].numpy(),
+                                       **TOL)
     _assert_caches(tcache, jcache)
 
 
@@ -199,6 +224,14 @@ def test_greedy_generate_with_ssm_cache_matches_reference(arch):
     _greedy_matches(arch)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b"])
+def test_greedy_generate_moe_matches_reference(arch):
+    """The same for the moe kind, top-2 with a shared expert and top-1, at
+    the configs' capacity factor 1.25."""
+    _greedy_matches(arch)
+
+
 def _greedy_matches(arch):
     jcfg, tcfg = reduced_f32(arch)
     jparams = jtf.init_params(jax.random.PRNGKey(4), jcfg)
@@ -222,7 +255,7 @@ def _greedy_matches(arch):
 
 
 def test_unported_kinds_raise():
-    for arch in ("deepseek-moe-16b", "seamless-m4t-large-v2"):
+    for arch in ("seamless-m4t-large-v2",):
         cfg = get_config(arch).reduced()
         with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -320,4 +353,15 @@ def test_serve_main_runs_ssm_and_hybrid_on_cpu(arch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith(f"arch={arch}-reduced batch=2 prompt=20 "
                                "steps=3 device=cpu")
+    assert lines[1].startswith("prefill: ") and len(lines) == 4
+
+
+def test_serve_main_runs_moe_on_cpu(capsys):
+    """``--arch deepseek-moe-16b``, reduced, through the launcher."""
+    serve.main(["--arch", "deepseek-moe-16b", "--reduced", "--device", "cpu",
+                "--temperature", "0", "--batch", "2", "--prompt-len", "20",
+                "--steps", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=deepseek-moe-16b-reduced batch=2 "
+                               "prompt=20 steps=3 device=cpu")
     assert lines[1].startswith("prefill: ") and len(lines) == 4
