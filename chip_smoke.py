@@ -130,7 +130,27 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    a layer of one prefill, the positions' cumulative sum in both layouts,
    the launches (28 a prefill on the tensor-core route, 28 a decode step
    on the split-KV route), the kernel on its own main-path calls against
-   plain and its times; then the serve launcher once.
+   plain and its times; then the serve launcher once;
+16. serving seamless-m4t-large-v2 at full width and depth (an enc-dec
+   model: 24 non-causal encoder blocks over the frames, 24 decoder blocks
+   of causal self-attention, cross-attention to the encoder's output and
+   an MLP; 16 query over 16 KV heads at hd 64), random weights from seed
+   0, batch 4, a 2048-token prompt, 2048 frames (f32, drawn after the
+   prompts from the same numpy generator, as the serve launcher draws
+   them) and 32 greedy decode steps; the parameter tree's params, bytes
+   and leaves and the cache's bytes (self and cross K/V) asserted; in f32
+   (TF32 off) at full depth the prefill and decode logits within 1e-3 of
+   max |logit| of ``forward`` over the same tokens and frames and of the
+   same steps through the plain attention, the greedy tokens equal but at
+   near-ties, and the cross K/V bit for bit as the prefill wrote them
+   after the 32 steps; in bf16, timed: prefill ms and decode ms a token
+   (median of 3), device busy time, idle share and top device ops of one
+   prefill and one decode step, peak memory, the launches (72 a prefill
+   on the tensor-core route: 24 encoder, 24 decoder, 24 cross; 48 a
+   decode step on the split-KV route: 24 self, 24 cross; none on the CUDA
+   cores), the kernel on its own main-path calls (encoder, decoder,
+   cross, decode self, decode cross) against plain and its times; then
+   the serve launcher once.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -140,8 +160,10 @@ plain version: ``tests/test_flash_kernel.py`` CASES (f32 and bf16, at 1e-4
 / 2e-2), a decode sweep (Sq 1, 5, 16; G 1, 2, 7, 8; kv_len 0, 1, a split
 boundary ± 1 and Skv; causal and windowed), ragged and padded tensor-core
 cases, a fully masked case a route, and the full-width prefill and decode
-shapes of qwen3-1.7b, hymba-1.5b (G = 5, hd 64) and deepseek-moe-16b (G =
-1, hd 128) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
+shapes of qwen3-1.7b, hymba-1.5b (G = 5, hd 64), deepseek-moe-16b (G =
+1, hd 128) and seamless-m4t-large-v2 (G = 1, hd 64: a non-causal prefill,
+a cross prefill over a ragged 1500 frames, a decode step and a cross
+decode step over 2048 frames) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
 prefill's own calls.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -238,6 +260,16 @@ MOE_NO_DROP_CF = 11.0       # k·cf >= E: every call's capacity covers its T
 MOE_CFS = (1.25, 0.5)       # moe_fwd against the per-expert loop
 MOE_RTOL = 1e-4             # of max |out|, moe_fwd against the loop (f32)
 MOE_AUX_TOL = 1e-5          # the balance loss, against the loop
+# phase 16: serving seamless-m4t-large-v2 (enc-dec) at full width
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_HEADS = (16, 16, 64)         # query heads, KV heads, hd (G = 1)
+ENCDEC_RAGGED = 1500                # phase 3's ragged cross-prefill frames
+# params, bytes (bf16) and leaves of the reference's init_params
+# (jax.eval_shape); cfg.param_count() leaves out the norm scales
+ENCDEC_PARAMS = (2_035_832_832, 4_071_665_664, 28)
+# batch 4, max_len 2080 (self K/V), 2048 frames (cross K/V), bf16
+ENCDEC_CACHE = {"k": 408_944_640, "v": 408_944_640,
+                "cross_k": 402_653_184, "cross_v": 402_653_184}
 APPLY_CALLS = 2000          # calls a turn when timing the host enqueue
 SLEEP_CYCLES = 10_000_000   # ~5 ms of GPU spin: the host enqueues meanwhile
 
@@ -775,6 +807,29 @@ def main():
         flash_check(f"deepseek decode {(bh, bkv, 1, skv, hd)} kv_len="
                     f"{SERVE_PROMPT + 1}", q, k, v, dn, causal=False,
                     kv_len=SERVE_PROMPT + 1)
+    # seamless-m4t-large-v2's shapes at batch 4: 16 query heads over 16 KV
+    # heads (G = 1), hd 64; the encoder's non-causal prefill, a cross
+    # prefill over a ragged frame count, a decode step over 2080 slots and
+    # a cross decode step over every one of 2048 frames
+    for dtype, dn in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        bh, bkv = 4 * ENCDEC_HEADS[0], 4 * ENCDEC_HEADS[1]
+        hd = ENCDEC_HEADS[2]
+        for skv, use in ((SERVE_PROMPT, "encoder"),
+                         (ENCDEC_RAGGED, "cross")):
+            q, k, v = (randn((bh, SERVE_PROMPT, hd), dtype),
+                       randn((bkv, skv, hd), dtype),
+                       randn((bkv, skv, hd), dtype))
+            flash_check(f"seamless {use} prefill "
+                        f"{(bh, bkv, SERVE_PROMPT, skv, hd)} non-causal", q,
+                        k, v, dn, causal=False)
+        for skv, kv_len, use in (
+                (SERVE_PROMPT + SERVE_STEPS, SERVE_PROMPT + 1, "decode"),
+                (SERVE_PROMPT, SERVE_PROMPT, "cross decode")):
+            q, k, v = (randn((bh, 1, hd), dtype), randn((bkv, skv, hd), dtype),
+                       randn((bkv, skv, hd), dtype))
+            flash_check(f"seamless {use} {(bh, bkv, 1, skv, hd)} kv_len="
+                        f"{kv_len}", q, k, v, dn, causal=False,
+                        kv_len=kv_len)
     say(f"[kernel] flash_attention calls a route in this phase: {fa_seen}; "
         f"max_abs_err a route: {fa_err}")
     if not all(fa_seen.values()):
@@ -1390,9 +1445,10 @@ def main():
         for q, k, v, kw in calls:
             b_, sq_, h_, hd_ = q.shape
             kv_len = kw.get("kv_len") or k.shape[1]
+            # the mask broadcasts over the rows where no mask needs them
             pairs = int(kref._attention_mask(
                 sq_, k.shape[1], kw["causal"], kw["window"], kv_len,
-                dev).sum())
+                dev).expand(sq_, k.shape[1]).sum())
             nbytes += 2 * nb(q) + 2 * b_ * kv_len * k.shape[2] * hd_ * \
                 k.element_size()
             flops += 4 * b_ * h_ * hd_ * pairs
@@ -2640,6 +2696,205 @@ def main():
     serve.main(["--arch", MOE_ARCH, "--temperature", "0"])
     torch.cuda.empty_cache()
     say(f"[moe-serve] phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # ---- 16. serving full-width seamless-m4t-large-v2 (enc-dec) -----------
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    cfg_bf = get_config(ENCDEC_ARCH)
+    cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
+                                compute_dtype="float32")
+    nl, nl_enc = cfg_bf.num_layers, cfg_bf.encoder_layers
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg_bf.vocab_size, size=(SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (SERVE_BATCH, SERVE_PROMPT, cfg_bf.frontend_dim),
+        dtype=np.float32)).to(dev)
+
+    def serve16(p, cfg, label):
+        """The main path (prefill + SERVE_STEPS greedy decode steps), the
+        launch counts zeroed just before and read just after: a prefill
+        launches the kernel once an encoder layer and twice a decoder layer
+        (self, cross), all on its dtype's prefill route; a decode step
+        twice a decoder layer, on the split-KV route."""
+        ops.reset_launch_counts()
+        run = serve.generate(p, cfg, prompts, steps, keep_logits=True,
+                             enc_inputs=frames)
+        counts = ops.launch_counts()
+        want = dict.fromkeys(flash_attention.ROUTES, 0)
+        want[flash_attention.route(dtype_of(cfg.compute_dtype),
+                                   SERVE_PROMPT, cfg.hd)] += nl_enc + 2 * nl
+        want["decode"] += 2 * nl * SERVE_STEPS
+        got = {r: counts[f"flash_attention_{r}"] for r in want}
+        say(f"[{label}] prefill {run.prefill_s * 1e3:.3f} ms, decode "
+            f"{run.decode_s_per_token * 1e3:.3f} ms/token; flash_attention "
+            f"launches {counts['flash_attention']}, by route {got} (want "
+            f"{want})")
+        if counts["flash_attention"] != sum(want.values()) or got != want:
+            fail(f"{label}: flash_attention launches {got}, expected {want}")
+        if not all(bool(torch.isfinite(lg).all()) and
+                   lg.shape == (SERVE_BATCH, cfg.vocab_size)
+                   for lg in run.logits):
+            fail(f"{label}: non-finite or mis-shaped logits")
+        return run, got
+
+    # f32 (TF32 off) at full depth, for parity: the kernel path against
+    # forward over the same tokens and frames and against the same steps
+    # through the plain attention; decode must leave the cross K/V as the
+    # prefill wrote them
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg32, gen_w.manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    say(f"[encdec-serve] {ENCDEC_ARCH}: {nl_enc} encoder + {nl} decoder "
+        f"layers, d={cfg_bf.d_model}, attention {cfg_bf.num_heads} over "
+        f"{cfg_bf.num_kv_heads} KV heads at hd {cfg_bf.hd}, d_ff "
+        f"{cfg_bf.d_ff}, frontend_dim {cfg_bf.frontend_dim}, vocab "
+        f"{cfg_bf.vocab_size}; batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, "
+        f"{SERVE_PROMPT} frames, {SERVE_STEPS} decode steps; f32 init "
+        f"{time.perf_counter() - t0:.2f} s")
+    run32, n32 = serve16(params, cfg32, f"{ENCDEC_ARCH} f32")
+    for r in flash_attention.ROUTES:
+        launches[r] += n32[r]
+    with torch.inference_mode():
+        lg, cache = dec.prefill(params, cfg32, prompts, frames,
+                                max_len=max_len)
+        cross0 = (cache["cross_k"].clone(), cache["cross_v"].clone())
+        for t in range(SERVE_STEPS):
+            lg, cache = dec.decode_step(params, cfg32,
+                                        run32.tokens[:, t:t + 1], cache)
+        same_cross = (torch.equal(cache["cross_k"], cross0[0])
+                      and torch.equal(cache["cross_v"], cross0[1]))
+        del cache, cross0
+        lg, cache = dec.prefill(params, cfg32, prompts, frames,
+                                max_len=max_len,
+                                flash_attention=kref.flash_attention)
+        plain = [lg]
+        for t in range(SERVE_STEPS):
+            lg, cache = dec.decode_step(params, cfg32,
+                                        run32.tokens[:, t:t + 1], cache,
+                                        flash_attention=kref.flash_attention)
+            plain.append(lg)
+        del cache
+        plain = torch.stack(plain, dim=1)                   # (B, steps, V)
+        got = torch.stack(run32.logits, dim=1)
+        d_plain = float((got - plain).abs().max())
+        seq = torch.cat([prompts, run32.tokens[:, :SERVE_STEPS]], dim=1)
+        full = tf.forward(params, cfg32, seq, frames)[0][:, SERVE_PROMPT - 1:]
+        tol = SERVE_RTOL * float(got.abs().max())
+        d_full = float((got - full).abs().max())
+        del full
+        top2 = plain.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        same = plain.argmax(dim=-1) == run32.tokens
+        bad = (~same & (gap >= tol)).any(dim=0)
+    say(f"[encdec-serve f32] max |logit| {tol / SERVE_RTOL:.4f}; prefill + "
+        f"decode vs forward: max_abs_diff {d_full:.3e}; kernel vs plain "
+        f"attention: max_abs_diff {d_plain:.3e} (limit {tol:.3e} = "
+        f"{SERVE_RTOL} x max |logit|); greedy tokens equal at "
+        f"{int(same.all(dim=0).sum())} of {steps} steps (against the plain "
+        f"attention); steps with a top-2 gap below the limit: "
+        f"{(gap < tol).any(dim=0).nonzero().flatten().tolist()}; cross K/V "
+        f"after {SERVE_STEPS} decode steps bit for bit as the prefill wrote "
+        f"them: {same_cross}")
+    if d_full > tol or d_plain > tol or bool(bad.any()) or not same_cross:
+        fail(f"{ENCDEC_ARCH} f32: the serving path disagrees with forward or "
+             "with the plain attention, or decode wrote the cross K/V")
+    del params, plain, got, top2, gap, same, bad, seq, run32
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth, timed
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    sizes = (sum(l_.numel() for l_ in leaves),
+             sum(l_.numel() * l_.element_size() for l_ in leaves),
+             len(leaves))
+    say(f"[encdec-serve bf16] params {sizes[0]:,} = {sizes[1]:,} B over "
+        f"{sizes[2]} leaves (want {ENCDEC_PARAMS}; cfg.param_count() "
+        f"{cfg_bf.param_count():,}); init {init_s:.2f} s")
+    if sizes != ENCDEC_PARAMS:
+        fail(f"{ENCDEC_ARCH}: the parameter tree holds {sizes}, expected "
+             f"{ENCDEC_PARAMS}")
+    serve.generate(params, cfg_bf, prompts[:, :256], 4,
+                   enc_inputs=frames[:, :256])                      # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve16(params, cfg_bf, f"{ENCDEC_ARCH} bf16 #{i}")
+            for i in range(3)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, n_ in runs:
+        for r in flash_attention.ROUTES:
+            launches[r] += n_[r]
+    pre_ms = statistics.median(r_.prefill_s * 1e3 for r_, _ in runs)
+    tok_ms = statistics.median(r_.decode_s_per_token * 1e3 for r_, _ in runs)
+    with torch.inference_mode():
+        (lg, cache), busy_pre, top_pre = profile_once(
+            lambda: dec.prefill(params, cfg_bf, prompts, frames,
+                                max_len=max_len))
+        _, busy_dec, top_dec = profile_once(
+            lambda: dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None],
+                                    cache))
+    cache_b = {n_: t_.numel() * t_.element_size()
+               for n_, t_ in cache.items() if n_ != "pos"}
+    say(f"[encdec-serve bf16] cache at max_len {max_len}, {SERVE_PROMPT} "
+        f"frames: " + ", ".join(f"{n_} {tuple(cache[n_].shape)} "
+                                f"{cache[n_].dtype} {b_:,} B"
+                                for n_, b_ in cache_b.items())
+        + f" (want {ENCDEC_CACHE})")
+    if cache_b != ENCDEC_CACHE:
+        fail(f"{ENCDEC_ARCH}: cache sizes {cache_b}, expected "
+             f"{ENCDEC_CACHE}")
+    del cache
+    say(f"[profile] {ENCDEC_ARCH} one bf16 prefill: device busy "
+        f"{busy_pre:.3f} ms, idle share {1 - busy_pre / pre_ms:.4f}; top "
+        f"device ops: {top_pre}")
+    say(f"[profile] {ENCDEC_ARCH} one bf16 decode step: device busy "
+        f"{busy_dec:.3f} ms, idle share {1 - busy_dec / tok_ms:.4f}; top "
+        f"device ops: {top_dec}")
+
+    # the kernel on the main path's own calls against plain, and its time
+    # a use at seamless's shapes: the prefill's calls are the encoder's
+    # (one a layer), then a decoder layer's self and cross in turn; a
+    # decode step's, a layer's self and cross in turn
+    recorded_fa = []
+    with torch.inference_mode():
+        lg, cache = dec.prefill(params, cfg_bf, prompts, frames,
+                                max_len=max_len, flash_attention=recording_fa)
+        pre_calls = recorded_fa[:]
+        dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None], cache,
+                        flash_attention=recording_fa)
+        dec_calls = recorded_fa[len(pre_calls):]
+        uses = (("tc", "encoder", pre_calls[:nl_enc]),
+                ("tc", "decoder self", pre_calls[nl_enc::2]),
+                ("tc", "cross", pre_calls[nl_enc + 1::2]),
+                ("decode", "decode-step self", dec_calls[0::2]),
+                ("decode", "decode-step cross", dec_calls[1::2]))
+        for _, use, calls in uses:
+            main_path_check(calls, f"{ENCDEC_ARCH} bf16 {use}", "bf16")
+    del cache, lg
+    flush = torch.empty(64 * 2**20, device=dev)
+    for route, use, calls in uses:
+        k_ms, p_ms, l_ms, b_ms, b_by, k_host = route_times(calls, BF16_FLOPS)
+        say(f"[times] flash_attention [{route} route], {ENCDEC_ARCH} bf16 "
+            f"{use}, one pass ({len(calls)} launches): kernel_ms={k_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} library_ms="
+            f"{l_ms:.4f} host_enqueue_ms={k_host:.4f}")
+    del pre_calls, dec_calls, recorded_fa, uses, flush
+    say(f"[times] serving {ENCDEC_ARCH} bf16, median of 3: prefill "
+        f"{pre_ms:.3f} ms, decode {tok_ms:.3f} ms/token; peak memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held, weights {sizes[1] / 2**30:.2f} GiB) "
+        f"({smi})")
+    del params, runs, leaves, frames
+    torch.cuda.empty_cache()
+    say(f"[cli] python -m repro_torch.launch.serve --arch {ENCDEC_ARCH} "
+        "--temperature 0:")
+    serve.main(["--arch", ENCDEC_ARCH, "--temperature", "0"])
+    torch.cuda.empty_cache()
+    say(f"[encdec-serve] phase 16: {time.perf_counter() - t16:.1f} s")
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

@@ -11,11 +11,15 @@ either package's ``save_pytree``. ``--temperature 0`` decodes greedily
 (the parity tests use it: JAX's categorical draws cannot be reproduced);
 above 0, tokens are drawn with ``torch.multinomial`` from a
 ``torch.Generator``. The first token is the argmax of the prefill logits,
-as in the reference. The dense, vlm, moe (``--arch deepseek-moe-16b``:
-33.8 GB of bf16 weights, which one 80 GB card holds; llama4-maverick's
-1.57 TB fits no single card), ssm (``--arch mamba2-780m``, whose cache
-holds no K/V, only the SSD's conv tail and state) and hybrid (``--arch
-hymba-1.5b``) families are ported.
+as in the reference. An enc-dec model (``--arch seamless-m4t-large-v2``)
+gets (B, S, frontend_dim) f32 frames drawn from the same numpy generator
+after the prompts, the reference's shape (its draws cannot be
+reproduced); the encoder casts them to the compute dtype. Every family is
+ported: dense, vlm, moe (``--arch deepseek-moe-16b``: 33.8 GB of bf16
+weights, which one 80 GB card holds; llama4-maverick's 1.57 TB fits no
+single card), ssm (``--arch mamba2-780m``, whose cache holds no K/V, only
+the SSD's conv tail and state), hybrid (``--arch hymba-1.5b``) and audio
+(the enc-dec seamless-m4t-large-v2, whose cache adds the cross K/V).
 """
 from __future__ import annotations
 
@@ -45,9 +49,11 @@ class Generation:
 def generate(params, cfg, prompts: torch.Tensor, steps: int, *,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             keep_logits: bool = False) -> Generation:
-    """Prefill ``prompts`` (B, S) into a cache of ``S + steps`` slots, take
-    the argmax as the first token, then ``steps - 1`` decode steps.
+             keep_logits: bool = False,
+             enc_inputs: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill ``prompts`` (B, S) (and an enc-dec model's ``enc_inputs``
+    frames) into a cache of ``S + steps`` slots, take the argmax as the
+    first token, then ``steps - 1`` decode steps.
 
     Times are host clock around work that ends in a device synchronise.
     """
@@ -60,7 +66,8 @@ def generate(params, cfg, prompts: torch.Tensor, steps: int, *,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = dec.prefill(params, cfg, prompts, max_len=s + steps)
+    logits, cache = dec.prefill(params, cfg, prompts, enc_inputs=enc_inputs,
+                                max_len=s + steps)
     sync()
     t1 = time.perf_counter()
     toks = logits.argmax(dim=-1)[:, None]
@@ -87,8 +94,8 @@ def main(argv=None) -> None:
                     help="ported: qwen3-1.7b, qwen2-7b, qwen2.5-14b, "
                     "deepseek-coder-33b (dense), qwen2-vl-2b (vlm), "
                     "deepseek-moe-16b, llama4-maverick-400b-a17b (moe), "
-                    "mamba2-780m (ssm), hymba-1.5b (hybrid); the audio "
-                    "arch raises NotImplementedError")
+                    "mamba2-780m (ssm), hymba-1.5b (hybrid), "
+                    "seamless-m4t-large-v2 (audio, enc-dec)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -103,17 +110,20 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), param_dtype="float32",
                                   compute_dtype="float32")
-    tf.check_ported(cfg)
     dev = torch.device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = (load_pytree(args.ckpt, dev) if args.ckpt
               else tf.init_params(cfg, gen, dev))
 
     b, s = args.batch, args.prompt_len
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, size=(b, s))
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, size=(b, s))
+    frames = (torch.from_numpy(rng.standard_normal(
+        (b, s, cfg.frontend_dim), dtype=np.float32)).to(dev)
+        if cfg.is_encdec else None)
     res = generate(params, cfg, torch.from_numpy(prompts).to(dev),
-                   args.steps, temperature=args.temperature, generator=gen)
+                   args.steps, temperature=args.temperature, generator=gen,
+                   enc_inputs=frames)
 
     gen_toks = res.tokens.cpu().numpy()
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"

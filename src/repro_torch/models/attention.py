@@ -16,7 +16,8 @@ step (``chip_smoke.py`` phase 13 times both; PERF.md). The masks:
 - causal over positions ``arange(S)`` (``q_pos`` and ``kv_pos`` left
   ``None``), with an optional sliding ``window``: prefill and ``forward``;
 - non-causal with ``window=0`` over the first ``kv_len`` keys: a decode step
-  over its KV ring buffer, whose filled slots are always a prefix.
+  over its KV ring buffer, whose filled slots are always a prefix, and an
+  enc-dec model's encoder and cross-attention (every key visible).
 
 Both are decided from Python ints and flags, so no tensor is read back per
 layer. On the CPU :func:`attend` follows the reference's two branches

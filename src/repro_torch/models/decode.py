@@ -1,11 +1,13 @@
-"""Serving path, port of ``repro.models.decode`` for the dense, moe, ssm
-and hybrid block kinds: prefill + single-token decode with a ring-buffer
-KV cache and the SSD's recurrent state.
+"""Serving path, port of ``repro.models.decode`` for every block kind:
+prefill + single-token decode with a ring-buffer KV cache, the SSD's
+recurrent state and the encoder-decoder's cross K/V.
 
 - ``init_cache``  — allocate the cache, leaves stacked over layers: K/V
-  ring buffers (dense, moe, hybrid), the SSD's raw conv tail ``ssm_conv`` (L,
-  B, W-1, di+2n) in the compute dtype and state ``ssm_state`` (L, B, H, N,
-  P) in f32 (ssm, hybrid).
+  ring buffers (dense, moe, hybrid, dec), the SSD's raw conv tail
+  ``ssm_conv`` (L, B, W-1, di+2n) in the compute dtype and state
+  ``ssm_state`` (L, B, H, N, P) in f32 (ssm, hybrid), the cross K/V
+  ``cross_k`` / ``cross_v`` (L, B, S_enc, KV, hd) in the compute dtype
+  (dec).
 - ``prefill``     — forward over the prompt that also fills the cache.
 - ``decode_step`` — ONE new token against the cache.
 
@@ -21,7 +23,9 @@ A hybrid block attends and runs the SSD on the same ``ln1`` output and
 averages the two; an ssm block has no ``ln2`` or MLP; an moe block's
 feed-forward is ``moe_fwd`` with its balance loss dropped, its capacity
 counted over the call's tokens (B·S at prefill, B at a decode step), as in
-the reference.
+the reference. A dec block's prefill encodes the frames once and writes
+each layer's cross K/V straight into the cache; a decode step reads them
+(every frame visible) and never writes them.
 
 Unlike the reference, which returns a new cache, :func:`decode_step`
 writes the new token's K/V and SSD conv tail and state into the cache's
@@ -40,8 +44,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.transformer import (_embed_tokens, _ffn, _logits,
+                                            _cross_attn, _cross_kv,
+                                            _encode, _need_frames,
                                             _positions_for, _qkv,
-                                            block_kind, check_ported)
+                                            block_kind)
 
 Pytree = Any
 
@@ -51,9 +57,9 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device="cuda") -> Pytree:
-    """Empty cache for ``seq_len`` context, leaves stacked over layers."""
-    check_ported(cfg)
+               enc_len: int = 0, device="cuda") -> Pytree:
+    """Empty cache for ``seq_len`` context (and ``enc_len`` encoder frames
+    for an enc-dec model), leaves stacked over layers."""
     dt = dtype_of(cfg.compute_dtype)
     kind = block_kind(cfg)
     layers = cfg.num_layers
@@ -69,15 +75,20 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             .contiguous()
         cache["ssm_state"] = sc["state"].expand(
             layers, *sc["state"].shape).contiguous()
+    if cfg.is_encdec:
+        shape = (layers, batch, enc_len, cfg.num_kv_heads, cfg.hd)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=device)
     return cache
 
 
 def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_inputs: Optional[torch.Tensor] = None,
             embeddings: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None, *,
             flash_attention: Optional[Callable] = None):
     """Forward over the prompt; returns (last-position logits (B, V),
-    cache).
+    cache). An enc-dec model needs ``enc_inputs``, (B, S_enc, F) frames.
 
     ``max_len`` sets the cache capacity (≥ prompt length); when omitted the
     cache is exactly prompt-sized and later decode steps roll the ring
@@ -85,7 +96,11 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     """
     b, s = tokens.shape
     kind = block_kind(cfg)
-    cache = init_cache(cfg, b, max_len or s, tokens.device)
+    if cfg.is_encdec:
+        enc_inputs = _need_frames(cfg, enc_inputs)
+        enc_out = _encode(params, cfg, enc_inputs, flash_attention)
+    cache = init_cache(cfg, b, max_len or s, enc_len=0 if enc_inputs is None
+                       else enc_inputs.shape[1], device=tokens.device)
     x = _embed_tokens(params, cfg, tokens, embeddings)
     positions = _positions_for(cfg, b, s, tokens.device)
     for l in range(cfg.num_layers):
@@ -115,6 +130,14 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             _store_ssm(cache, l, sc)
             o = 0.5 * (o + o2)
         x = x + o
+        if kind == "dec":
+            ck, cv = cache["cross_k"][l], cache["cross_v"][l]
+            k, v = _cross_kv(blk["cross"], cfg, enc_out)
+            ck.copy_(k)
+            cv.copy_(v)
+            x = x + _cross_attn(blk["cross"], cfg,
+                                rms_norm(x, blk["ln_cross"]), (ck, cv),
+                                flash_attention)
         x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
     cache["pos"] = s
     return _logits(params, cfg, x[:, -1, :]), cache
@@ -134,7 +157,6 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Pytree, *,
                 flash_attention: Optional[Callable] = None):
     """One token. tokens: (B, 1) int. Returns (logits (B, V), cache')."""
-    check_ported(cfg)
     b = tokens.shape[0]
     kind = block_kind(cfg)
     pos = cache["pos"]
@@ -165,5 +187,10 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             _store_ssm(cache, l, sc)
             o = 0.5 * (o + o2)
         x = x + o
+        if kind == "dec":
+            x = x + _cross_attn(blk["cross"], cfg,
+                                rms_norm(x, blk["ln_cross"]),
+                                (cache["cross_k"][l], cache["cross_v"][l]),
+                                flash_attention)
         x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
     return _logits(params, cfg, x[:, 0, :]), {**cache, "pos": pos + 1}

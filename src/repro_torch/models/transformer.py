@@ -1,17 +1,19 @@
-"""Transformer LM, port of ``repro.models.transformer`` for the ``dense``
-(the ``dense`` and ``vlm`` families), ``moe`` (routed experts in place of
-the MLP), ``ssm`` (Mamba-2, attention-free) and ``hybrid`` (attention ∥
-SSD in every block) block kinds.
+"""Transformer LM, port of ``repro.models.transformer`` for every block
+kind: ``dense`` (the ``dense`` and ``vlm`` families), ``moe`` (routed
+experts in place of the MLP), ``ssm`` (Mamba-2, attention-free), ``hybrid``
+(attention ∥ SSD in every block), and ``enc`` / ``dec`` (the ``audio``
+family's encoder-decoder).
 
 Parameters keep the reference's key paths, shapes and layouts (dense
 weights ``(d_in, d_out)``), so its params cross with
 :func:`repro_torch.bridge.params_from_numpy`::
 
     params = {
-      "embed":     {"tok": (V, D)},
-      "blocks":    {...leaves stacked (L, ...)},
-      "enc_embed": {"proj": (F, D), "norm": (D,)}      (vlm frontend stub)
-      "final":     {"norm": (D,) [, "head": (D, V)]},
+      "embed":      {"tok": (V, D)},
+      "blocks":     {...leaves stacked (L, ...)},
+      "enc_blocks": {...leaves stacked (L_enc, ...)}  (enc-dec only)
+      "enc_embed":  {"proj": (F, D), "norm": (D,)}    (audio, vlm stubs)
+      "final":      {"norm": (D,) [, "head": (D, V)]},
     }
 
 The reference scans the stacked blocks; here :func:`_run_stack` is a
@@ -37,10 +39,18 @@ A block of each kind (the reference's ``_init_block`` / ``_block_fwd``):
             experts' balance loss, summed over the layers in f32)
     ssm:    x + ssd(ln1(x))                        (no ln2, no mlp)
     hybrid: x + 0.5·(attn(h) + ssd(h)), h = ln1(x), then + mlp(ln2(x))
+    enc:    x + attn(ln1(x)) non-causal, then + mlp(ln2(x))
+    dec:    x + attn(ln1(x)), then + cross(ln_cross(x), enc_kv), then
+            + mlp(ln2(x))
 
 A block returns ``(x, aux)``, aux 0 in f32 for the kinds without experts.
-The enc-dec (``dec``) kind is not ported yet (ROADMAP Queue 1 item 10) and
-raises ``NotImplementedError``.
+An enc-dec model encodes its frames once (:func:`_encode`: the frontend
+stub's projection, then the ``enc`` stack), projects each decoder layer's
+cross K/V from the encoder's output once (:func:`_enc_kv_all`), and its
+``dec`` blocks attend to them with plain projections (no bias, qk-norm,
+RoPE or LoRA; :func:`_cross_attn`). The frames are cast to the compute
+dtype first: in the reference f32 frames promote a bf16 encoder to f32,
+and ``f32 @ bf16`` is an error here.
 
 """
 from __future__ import annotations
@@ -59,7 +69,6 @@ from repro_torch.models.layers import (init_dense, init_embed, init_mlp,
                                        lora_dense, mlp_fwd, rms_norm)
 
 Pytree = Any
-PORTED_KINDS = ("dense", "moe", "ssm", "hybrid")
 
 
 def block_kind(cfg: ModelConfig) -> str:
@@ -67,22 +76,14 @@ def block_kind(cfg: ModelConfig) -> str:
             "ssm": "ssm", "hybrid": "hybrid", "audio": "dec"}[cfg.family]
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block kind the port does not
-    have yet."""
-    kind = block_kind(cfg)
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {kind!r} block kind ({cfg.family} family) is "
-            "not ported to PyTorch yet (ROADMAP Queue 1 item 10); the port "
-            f"runs the {PORTED_KINDS} kinds (the dense, vlm, moe, ssm and "
-            "hybrid families)")
-
-
 # ======================================================================
 # Init
 # ======================================================================
-def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple):
+def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple,
+               cross: bool = False):
+    """One attention's projections, biases and qk-norm scales. A cross
+    attention has no qk-norm scales; it keeps the biases, which it never
+    reads, as the reference does."""
     dt = dtype_of(cfg.param_dtype)
     d, hd = cfg.d_model, cfg.hd
     qdim, kvdim = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -95,7 +96,7 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple):
     if cfg.qkv_bias:
         for name, n in (("bq", qdim), ("bk", kvdim), ("bv", kvdim)):
             p[name] = torch.zeros((*lead, n), dtype=dt, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((*lead, hd), dtype=dt, device=device)
         p["k_norm"] = torch.ones((*lead, hd), dtype=dt, device=device)
     return p
@@ -115,6 +116,10 @@ def _stack_blocks(gen: torch.Generator, cfg: ModelConfig, device,
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device, lead)
     if kind == "ssm":
         return p
+    if kind == "dec":
+        p["ln_cross"] = torch.ones((depth, cfg.d_model), dtype=dt,
+                                   device=device)
+        p["cross"] = _init_attn(gen, cfg, device, lead, cross=True)
     p["ln2"] = torch.ones((depth, cfg.d_model), dtype=dt, device=device)
     if kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, device, lead)
@@ -131,7 +136,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     CUDA generator to build a full-width model on the card quickly. The
     numbers differ from the reference's ``jax.random`` draws; parity tests
     carry weights across instead."""
-    check_ported(cfg)
     dt = dtype_of(cfg.param_dtype)
     params: Pytree = {
         "embed": {"tok": init_embed(generator, cfg.vocab_size, cfg.d_model,
@@ -144,10 +148,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["final"]["head"] = init_dense(generator, cfg.d_model,
                                              cfg.vocab_size, dt, device)
-    if cfg.family == "vlm" and cfg.frontend_dim:
+    if cfg.is_encdec:
+        params["enc_blocks"] = _stack_blocks(generator, cfg, device, "enc",
+                                             cfg.encoder_layers)
+    if cfg.is_encdec or (cfg.family == "vlm" and cfg.frontend_dim):
         params["enc_embed"] = {
-            "proj": init_dense(generator, cfg.frontend_dim, cfg.d_model, dt,
-                               device),
+            "proj": init_dense(generator, cfg.frontend_dim or cfg.d_model,
+                               cfg.d_model, dt, device),
             "norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
         }
     return params
@@ -195,6 +202,19 @@ def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True,
     return lora_dense(o.reshape(b, s, -1), p["wo"], p.get("lora"), "wo")
 
 
+def _cross_attn(p, cfg: ModelConfig, x, enc_kv,
+                flash_attention: Optional[Callable] = None):
+    """Cross-attention of ``x`` (B, S, D) to a precomputed encoder K/V
+    pair, each (B, S_enc, KV, hd): every row sees every frame (non-causal,
+    no window, whatever ``cfg.sliding_window`` says)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.hd)
+    k, v = enc_kv
+    o = attn.attend(q, k, v, causal=False, window=0,
+                    flash_attention=flash_attention)
+    return o.reshape(b, s, -1) @ p["wo"]
+
+
 # ======================================================================
 # Block forward (full sequence)
 # ======================================================================
@@ -207,16 +227,21 @@ def _ffn(blk, cfg: ModelConfig, h, kind: str):
 
 
 def _block_fwd(blk, cfg: ModelConfig, x, positions, kind: str,
-               flash_attention=None):
+               flash_attention=None, enc_kv=None):
+    """One block of ``kind``; ``enc_kv`` is a ``dec`` block's (k, v) pair
+    (without it the block skips its cross-attention, as the reference)."""
     h = rms_norm(x, blk["ln1"])
     if kind == "ssm":
         return (x + ssm_mod.ssd_fwd(blk["ssm"], h, cfg),
                 torch.zeros((), device=x.device))
-    o = _self_attn(blk["attn"], cfg, h, positions,
+    o = _self_attn(blk["attn"], cfg, h, positions, causal=kind != "enc",
                    flash_attention=flash_attention)
     if kind == "hybrid":
         o = 0.5 * (o + ssm_mod.ssd_fwd(blk["ssm"], h, cfg))
     x = x + o
+    if kind == "dec" and enc_kv is not None:
+        x = x + _cross_attn(blk["cross"], cfg, rms_norm(x, blk["ln_cross"]),
+                            enc_kv, flash_attention)
     out, aux = _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)
     return x + out, torch.zeros((), device=x.device) if aux is None else aux
 
@@ -262,25 +287,32 @@ class _RecomputeBlock(torch.autograd.Function):
         return (None, *grads)
 
 
-def _run_stack(blocks, cfg: ModelConfig, x, positions, flash_attention=None):
-    """(x, aux): the blocks in order, aux summed over the layers in f32."""
-    kind = block_kind(cfg)
+def _run_stack(blocks, cfg: ModelConfig, x, positions, kind: str,
+               enc_kv=None, flash_attention=None):
+    """(x, aux): the stacked ``kind`` blocks in order (as many as their
+    leading dim), aux summed over the layers in f32. ``enc_kv``: the
+    decoder's stacked (L, B, S_enc, KV, hd) pair; layer ``l`` reads its
+    slice ``l``."""
     aux = torch.zeros((), device=x.device)
-    for l in range(cfg.num_layers):
+    for l in range(blocks["ln1"].shape[0]):
         blk = tree_stack_index(blocks, l)
+        kv = () if enc_kv is None else (enc_kv[0][l], enc_kv[1][l])
         if not cfg.remat_blocks:
-            x, a = _block_fwd(blk, cfg, x, positions, kind, flash_attention)
+            x, a = _block_fwd(blk, cfg, x, positions, kind, flash_attention,
+                              kv or None)
             aux = aux + a
             continue
         paths, leaves = zip(*leaf_paths(blk))
 
-        def fn(x, positions, *leaves, paths=paths):
-            return _block_fwd(tree_from_paths(paths, leaves), cfg, x,
-                              positions, kind, flash_attention)
+        def fn(x, positions, *tensors, paths=paths, n=len(kv)):
+            return _block_fwd(tree_from_paths(paths, tensors[n:]), cfg, x,
+                              positions, kind, flash_attention,
+                              tensors[:n] or None)
 
-        # every tensor is an argument: a generated vmap rule refuses a
-        # closure over a tensor made inside the transforms
-        x, a = _RecomputeBlock.apply(fn, x, positions, *leaves)
+        # every tensor is an argument, the layer's K/V slices too: a
+        # generated vmap rule refuses a closure over a tensor made inside
+        # the transforms
+        x, a = _RecomputeBlock.apply(fn, x, positions, *kv, *leaves)
         aux = aux + a
     return x, aux
 
@@ -294,6 +326,38 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, device,
         return attn.text_mrope_positions(batch, seq, device) + offset
     return torch.arange(seq, device=device)[None, :].expand(batch, seq) \
         + offset
+
+
+def _encode(params, cfg: ModelConfig, enc_inputs,
+            flash_attention: Optional[Callable] = None):
+    """Frontend stub frames (B, S_enc, F) -> encoder stack -> (B, S_enc,
+    D). The frames are cast to the compute dtype first."""
+    x = enc_inputs.to(dtype_of(cfg.compute_dtype)) \
+        @ params["enc_embed"]["proj"]
+    x = rms_norm(x, params["enc_embed"]["norm"])
+    pos = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
+    x, _ = _run_stack(params["enc_blocks"], cfg, x, pos, "enc",
+                      flash_attention=flash_attention)
+    return x
+
+
+def _cross_kv(cross, cfg: ModelConfig, enc_out):
+    """One decoder layer's cross K/V from the encoder's output, each (B,
+    S_enc, KV, hd)."""
+    b, se, _ = enc_out.shape
+    shape = (b, se, cfg.num_kv_heads, cfg.hd)
+    return ((enc_out @ cross["wk"]).reshape(shape),
+            (enc_out @ cross["wv"]).reshape(shape))
+
+
+def _enc_kv_all(params, cfg: ModelConfig, enc_out):
+    """Every decoder layer's cross K/V, computed once: a stacked (L, B,
+    S_enc, KV, hd) pair."""
+    cross = params["blocks"]["cross"]
+    pairs = [_cross_kv(tree_stack_index(cross, l), cfg, enc_out)
+             for l in range(cross["wk"].shape[0])]
+    return (torch.stack([k for k, _ in pairs]),
+            torch.stack([v for _, v in pairs]))
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, embeddings=None):
@@ -314,23 +378,31 @@ def _logits(params, cfg: ModelConfig, x):
     return x @ head.to(x.dtype)
 
 
+def _need_frames(cfg: ModelConfig, enc_inputs):
+    if enc_inputs is None:
+        raise ValueError(f"{cfg.name}: an enc-dec model needs enc_inputs")
+    return enc_inputs
+
+
 def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             enc_inputs: Optional[torch.Tensor] = None,
             embeddings: Optional[torch.Tensor] = None, *,
             flash_attention: Optional[Callable] = None):
     """Full-sequence forward. tokens: (B, S) int -> logits (B, S, V), aux
     (the experts' balance loss summed over the layers, f32; 0 for the kinds
-    without experts).
+    without experts). An enc-dec model needs ``enc_inputs``, (B, S_enc, F)
+    frames; the other models ignore them.
     ``flash_attention`` replaces the kernel on CUDA (see
     :func:`repro_torch.models.attention.attend`)."""
-    check_ported(cfg)
-    if enc_inputs is not None:
-        raise NotImplementedError("enc-dec models are not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens, embeddings)
     pos = _positions_for(cfg, b, s, tokens.device)
-    x, aux = _run_stack(params["blocks"], cfg, x, pos, flash_attention)
+    enc_kv = None
+    if cfg.is_encdec:
+        enc_kv = _enc_kv_all(params, cfg, _encode(
+            params, cfg, _need_frames(cfg, enc_inputs), flash_attention))
+    x, aux = _run_stack(params["blocks"], cfg, x, pos, block_kind(cfg),
+                        enc_kv, flash_attention)
     return _logits(params, cfg, x), aux
 
 

@@ -10,7 +10,9 @@ recurrence, hymba-1.5b's attention shapes on every route, a small hybrid
 and ssm model's serving against the CPU), and the moe kind (``moe_fwd``
 against a per-expert loop with choices dropped and no host sync,
 deepseek-moe-16b's attention shapes, a small moe model's serving and its
-``vmap(grad)`` of ``lm_loss`` against the CPU).
+``vmap(grad)`` of ``lm_loss`` against the CPU), and the enc-dec kinds
+(seamless-m4t-large-v2's attention shapes, a small enc-dec model's
+serving and its ``vmap(grad)`` of ``lm_loss`` against the CPU).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1379,3 +1381,111 @@ def test_cuda_moe_vmap_grad_matches_cpu(cuda, no_tf32, remat):
         torch.testing.assert_close(a.cpu(), c, rtol=0, atol=EQUIV_TOL)
     assert ops.launch_counts()["flash_attention"] == \
         cfg.num_layers * (2 if remat else 1)
+
+
+# -- the enc-dec kinds -------------------------------------------------------
+TINY_ENCDEC = dict(name="t-audio", family="audio", num_layers=2,
+                   encoder_layers=2, d_model=128, num_heads=4,
+                   num_kv_heads=4, head_dim=64, d_ff=256, vocab_size=97,
+                   frontend_dim=48, param_dtype="float32",
+                   compute_dtype="float32")
+
+
+@pytest.mark.parametrize("route", ["tc", "decode"])
+def test_cuda_flash_attention_seamless_shapes(cuda, route):
+    """16 query heads over 16 KV heads (G = 1) at hd 64, as
+    seamless-m4t-large-v2 attends (batch 1): a non-causal bf16 prefill
+    over 2048 frames and a cross prefill over a ragged 1500 on the tensor
+    cores; a decode step over 2080 slots at kv_len 2049 and a cross
+    decode step over 2048 frames at kv_len 2048, in both dtypes."""
+    if route == "decode":
+        for dtype in ("bf16", "f32"):
+            for skv, kv_len in ((2080, 2049), (2048, 2048)):
+                q, k, v = _bshd(cuda, 1, 1, 16, 16, skv, 64, dtype, 15)
+                _close(ops.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len),
+                       ref.flash_attention(q, k, v, causal=False,
+                                           kv_len=kv_len), dtype)
+        assert ops.launch_counts()["flash_attention_decode"] == 4
+        return
+    for skv in (2048, 1500):
+        q, k, v = _bshd(cuda, 1, 2048, 16, 16, skv, 64, "bf16", 16)
+        _close(ops.flash_attention(q, k, v, causal=False),
+               ref.flash_attention(q, k, v, causal=False), "bf16")
+    assert ops.launch_counts()["flash_attention_tc"] == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_encdec_serving_matches_cpu(cuda, no_tf32, dtype):
+    """A small enc-dec model (G = 1, hd 64) over 24 frames: prefill and 4
+    decode steps on the card against the CPU (f32 within 1e-4, bf16 within
+    3e-2 of max |logit|), in f32 also against forward on the card; the
+    kernel launches 3 × L times a prefill (encoder, decoder, cross; bf16:
+    all on the tensor cores) and 2 × L a decode step (split-KV), and the
+    cross K/V stay as the prefill wrote them."""
+    cfg = ModelConfig(**{**TINY_ENCDEC, "param_dtype": dtype,
+                         "compute_dtype": dtype})
+    layers = cfg.num_layers
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, 97, size=(2, 24)))
+    frames = torch.from_numpy(rng.standard_normal((2, 24, 48),
+                                                  dtype=np.float32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        t, fr = toks.to(dev), frames.to(dev)
+        with torch.inference_mode():
+            if dtype == "float32":
+                full, _ = ttf.forward(p, cfg, t, fr)
+            ops.reset_launch_counts()
+            lg, cache = tdec.prefill(p, cfg, t[:, :20], fr, max_len=24)
+            cross = (cache["cross_k"].clone(), cache["cross_v"].clone())
+            pre = ops.launch_counts()
+            steps = [lg]
+            for i in range(20, 24):
+                lg, cache = tdec.decode_step(p, cfg, t[:, i:i + 1], cache)
+                if dtype == "float32":
+                    torch.testing.assert_close(lg, full[:, i], rtol=1e-4,
+                                               atol=1e-4)
+                steps.append(lg)
+        assert torch.equal(cache["cross_k"], cross[0])
+        assert torch.equal(cache["cross_v"], cross[1])
+        outs[str(dev)] = torch.stack(steps).float().cpu()
+        assert set(cache) == {"pos", "k", "v", "cross_k", "cross_v"}
+    tol = (1e-4 if dtype == "float32" else
+           3e-2 * float(outs["cpu"].abs().max()))
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=tol)
+    route = "cuda_core" if dtype == "float32" else "tc"
+    assert pre[f"flash_attention_{route}"] == 3 * layers
+    assert pre["flash_attention"] == 3 * layers
+    counts = ops.launch_counts()
+    assert counts["flash_attention_decode"] == 4 * 2 * layers
+    assert counts["flash_attention"] == 3 * layers + 4 * 2 * layers
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_cuda_encdec_vmap_grad_matches_cpu(cuda, no_tf32, remat):
+    """vmap(grad_and_value) of the enc-dec lm_loss over 2 clients'
+    batches (tokens and 24 frames) on the card through
+    ``FlashAttentionFn`` against the CPU: losses within 1e-5, every leaf's
+    gradient within 2e-5; one launch an attention (encoder, decoder,
+    cross) for both clients, twice under remat."""
+    cfg = ModelConfig(**{**TINY_ENCDEC, "remat_blocks": remat})
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {n: torch.from_numpy(rng.integers(0, 97, size=(2, 2, 20)))
+             for n in ("tokens", "labels")}
+    batch["enc_inputs"] = torch.from_numpy(rng.standard_normal(
+        (2, 2, 24, 48), dtype=np.float32))
+    fn = torch.func.vmap(torch.func.grad_and_value(
+        lambda p, b: ttf.lm_loss(p, cfg, b)), in_dims=(None, 0))
+    g_c, l_c = fn(params, batch)
+    g_g, l_g = fn(tree_map(lambda l: l.to(cuda), params),
+                  tree_map(lambda l: l.to(cuda), batch))
+    torch.testing.assert_close(l_g.cpu(), l_c, rtol=0, atol=1e-5)
+    for a, c in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=EQUIV_TOL)
+    attentions = cfg.encoder_layers + 2 * cfg.num_layers
+    assert ops.launch_counts()["flash_attention"] == \
+        attentions * (2 if remat else 1)

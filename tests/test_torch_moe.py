@@ -170,13 +170,6 @@ def test_init_params_has_the_reference_tree(arch, dtype):
         assert 0.95 < std < 1.05, name
 
 
-def test_check_ported_takes_the_moe_configs():
-    for arch in ARCHS:
-        tfm.check_ported(get_config(arch))
-    with pytest.raises(NotImplementedError, match="'dec' block kind"):
-        tfm.check_ported(get_config("seamless-m4t-large-v2"))
-
-
 def test_inject_lora_paths_match_reference():
     """Adapters on the attention projections only: the expert banks and
     the shared experts (``moe/shared``) get none, as in the reference."""

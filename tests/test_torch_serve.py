@@ -1,11 +1,12 @@
 """The port's serving path against the JAX package on the CPU, in f32:
 ``forward`` (logits and aux), ``prefill`` and ``decode_step`` on the
-dense, vlm, moe, ssm and hybrid configs of
+dense, vlm, moe, ssm, hybrid and audio (enc-dec) configs of
 tests/test_decode_consistency.py plus reduced qwen3-1.7b,
-deepseek-moe-16b, llama4-maverick-400b-a17b, mamba2-780m and hymba-1.5b,
-with the reference's weights carried across through the bridge; checkpoints written
-by one package and read by the other (bf16 bit for bit); and the serve
-launcher."""
+deepseek-moe-16b, llama4-maverick-400b-a17b, mamba2-780m, hymba-1.5b and
+seamless-m4t-large-v2, with the reference's weights carried across
+through the bridge; every configured arch's reduced parameter tree;
+checkpoints written by one package and read by the other (bf16 bit for
+bit); and the serve launcher."""
 import dataclasses
 import os
 import subprocess
@@ -22,6 +23,7 @@ import numpy as np  # noqa: E402
 
 from repro.checkpoint import load_pytree as jload  # noqa: E402
 from repro.checkpoint import save_pytree as jsave  # noqa: E402
+from repro.configs import ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import decode as jdec  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -71,8 +73,11 @@ CASES = {
     "hybrid": mk("hybrid", ssm_state=8, ssm_head_dim=16, ssm_chunk=8),
     "mamba2-780m-reduced": reduced_f32("mamba2-780m"),
     "hymba-1.5b-reduced": reduced_f32("hymba-1.5b"),
+    # tests/test_decode_consistency.py:31,41: (2, 13, 24) frames
+    "audio": mk("audio", encoder_layers=2, frontend_dim=24),
+    "seamless-m4t-large-v2-reduced": reduced_f32("seamless-m4t-large-v2"),
 }
-CACHE_KEYS = ("k", "v", "ssm_conv", "ssm_state")
+CACHE_KEYS = ("k", "v", "ssm_conv", "ssm_state", "cross_k", "cross_v")
 AUX_TOL = 1e-5
 
 
@@ -96,9 +101,18 @@ def _carry(jparams):
     return params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
 
 
+def _frames(cfg, b, seed=0):
+    """An enc-dec model's (B, 13, frontend_dim) f32 frames, else None."""
+    if not cfg.is_encdec:
+        return None, None
+    fr = np.random.default_rng(seed + 100).normal(
+        size=(b, 13, cfg.frontend_dim)).astype(np.float32)
+    return jnp.asarray(fr), torch.from_numpy(fr)
+
+
 def _assert_caches(tcache, jcache):
     """Every cache leaf the reference has (K/V, the SSD's conv tail and
-    state), and no other."""
+    state, the cross K/V), with its dtype, and no other."""
     keys = [key for key in CACHE_KEYS if key in jcache]
     assert keys and set(tcache) == set(keys) | {"pos"}
     for key in keys:
@@ -117,18 +131,20 @@ def _serving_matches(jcfg, tcfg, toks, s, steps, max_len, seed=0):
     jparams = jtf.init_params(jax.random.PRNGKey(seed), jcfg)
     tparams = _carry(jparams)
     jt, tt = jnp.asarray(toks), torch.from_numpy(toks).long()
-    jfull, jaux = jforward(jparams, jcfg, jt)
-    tfull, aux = ttf.forward(tparams, tcfg, tt)
+    jfr, tfr = _frames(tcfg, toks.shape[0], seed)
+    jfull, jaux = jforward(jparams, jcfg, jt, jfr)
+    tfull, aux = ttf.forward(tparams, tcfg, tt, tfr)
     assert aux.dtype == torch.float32 and aux.shape == ()
     assert abs(float(aux) - float(jaux)) <= AUX_TOL
     np.testing.assert_allclose(tfull.numpy(), np.asarray(jfull), **TOL)
 
-    jlg, jcache = jprefill(jparams, jcfg, jt[:, :s], max_len=max_len)
-    tlg, tcache = tdec.prefill(tparams, tcfg, tt[:, :s], max_len=max_len)
+    jlg, jcache = jprefill(jparams, jcfg, jt[:, :s], jfr, max_len=max_len)
+    tlg, tcache = tdec.prefill(tparams, tcfg, tt[:, :s], tfr,
+                               max_len=max_len)
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), **TOL)
     np.testing.assert_allclose(
-        tlg.numpy(), ttf.forward(tparams, tcfg, tt[:, :s])[0][:, -1].numpy(),
-        **TOL)
+        tlg.numpy(),
+        ttf.forward(tparams, tcfg, tt[:, :s], tfr)[0][:, -1].numpy(), **TOL)
     _assert_caches(tcache, jcache)
     assert tcache["pos"] == int(jcache["pos"]) == s
     for t in range(steps):
@@ -232,14 +248,21 @@ def test_greedy_generate_moe_matches_reference(arch):
     _greedy_matches(arch)
 
 
+def test_greedy_generate_encdec_matches_reference():
+    """The same for the enc-dec kind, with (2, 13, 128) frames: the
+    encoder runs once, each step reads the cross K/V."""
+    _greedy_matches("seamless-m4t-large-v2")
+
+
 def _greedy_matches(arch):
     jcfg, tcfg = reduced_f32(arch)
     jparams = jtf.init_params(jax.random.PRNGKey(4), jcfg)
     tparams = _carry(jparams)
     prompts = np.random.default_rng(4).integers(
         0, tcfg.vocab_size, size=(2, 8)).astype(np.int32)
+    jfr, tfr = _frames(tcfg, 2, 4)
     steps = 6
-    lg, cache = jprefill(jparams, jcfg, jnp.asarray(prompts),
+    lg, cache = jprefill(jparams, jcfg, jnp.asarray(prompts), jfr,
                          max_len=8 + steps)
     toks = jnp.argmax(lg, -1)[:, None]
     want = [toks]
@@ -248,17 +271,29 @@ def _greedy_matches(arch):
         toks = jnp.argmax(lg, -1)[:, None]
         want.append(toks)
     got = serve.generate(tparams, tcfg, torch.from_numpy(prompts).long(),
-                         steps, temperature=0.0, keep_logits=True)
+                         steps, temperature=0.0, keep_logits=True,
+                         enc_inputs=tfr)
     np.testing.assert_array_equal(got.tokens.numpy(),
                                   np.asarray(jnp.concatenate(want, axis=1)))
     assert len(got.logits) == steps
 
 
-def test_unported_kinds_raise():
-    for arch in ("seamless-m4t-large-v2",):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_reduced_config_has_the_reference_tree(arch):
+    """Every configured arch builds in the port (no block kind is
+    refused): its reduced config's tree, in the config's own dtypes,
+    against the reference's ``jax.eval_shape(init_params)``: paths, shapes
+    and dtypes."""
+    jcfg, tcfg = jget_config(arch).reduced(), get_config(arch).reduced()
+    shapes = jax.eval_shape(
+        lambda: jtf.init_params(jax.random.PRNGKey(0), jcfg))
+    tparams = ttf.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    jflat = {jax.tree_util.keystr(p): (tuple(x.shape), str(x.dtype))
+             for p, x in jax.tree_util.tree_leaves_with_path(shapes)}
+    tflat = {jax.tree_util.keystr(p): (tuple(x.shape),
+                                       str(x.dtype).replace("torch.", ""))
+             for p, x in jax.tree_util.tree_leaves_with_path(tparams)}
+    assert tflat == jflat
 
 
 def test_init_params_has_the_reference_tree():
@@ -353,6 +388,18 @@ def test_serve_main_runs_ssm_and_hybrid_on_cpu(arch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith(f"arch={arch}-reduced batch=2 prompt=20 "
                                "steps=3 device=cpu")
+    assert lines[1].startswith("prefill: ") and len(lines) == 4
+
+
+def test_serve_main_runs_encdec_on_cpu(capsys):
+    """``--arch seamless-m4t-large-v2``, reduced, through the launcher:
+    (B, S, frontend_dim) frames drawn after the prompts."""
+    serve.main(["--arch", "seamless-m4t-large-v2", "--reduced", "--device",
+                "cpu", "--temperature", "0", "--batch", "2", "--prompt-len",
+                "20", "--steps", "3"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("arch=seamless-m4t-large-v2-reduced batch=2 "
+                               "prompt=20 steps=3 device=cpu")
     assert lines[1].startswith("prefill: ") and len(lines) == 4
 
 
