@@ -150,7 +150,28 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    decode step on the split-KV route: 24 self, 24 cross; none on the CUDA
    cores), the kernel on its own main-path calls (encoder, decoder,
    cross, decode self, decode cross) against plain and its times; then
-   the serve launcher once.
+   the serve launcher once;
+17. round telemetry at the paper's setup on phase 11's 50,000 images, in
+   vmap and setting A (int8 + EF): ``run_training_scan`` for 4 rounds
+   (eval_every=2) with ``TelemetryConfig(ledger_path=..., profile_rounds=
+   (1, 2))`` against ``telemetry=None``, bit for bit (within 2e-5 only if
+   two telemetry-off runs already differ), and ``run_training(sampler=
+   "device")`` with the same telemetry, whose ledger must equal the
+   engine's field by field (loss, comm, taps, selection, uplink); every
+   round's record: ``sel_count`` 4 in every unit, the selection's column
+   sums equal to it, exact uplink bytes, ``wire_bits``,
+   ``wire_unit_bytes`` and a finite ``state_residual_norm`` in A,
+   ``wall_s`` > 0, ``mem_peak_bytes`` at most ``max_memory_allocated``;
+   the profiler trace, one file holding exactly rounds 1-2's FL kernels
+   (2 ``sqdiff_rowsum`` calls of 2 kernels, and 2 ``fused_uplink_ef``
+   in A); one round's taps against the plain Eq. 3 reduction (and the EF
+   residual norm against float64); a telemetry-on 2-round block under
+   ``set_sync_debug_mode("error")`` and its one device->host copy; the
+   monitor over the phase's ledger; the telemetry cost: round wall-clock,
+   host enqueue, device busy and idle share, off and on, the taps' own
+   device time and ledger bytes a round; then ``python -m
+   repro_torch.launch.train --task cifar --paper-scale --rounds 2`` once,
+   whose comm summary must give the exact bytes of 2 fedldf rounds.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -169,15 +190,23 @@ prefill's own calls.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Phases 4-8 cut the data set to 10,000
 training images (200 per client instead of the paper's 1,000) to keep
-set-up short; phases 11-12 use the paper's 50,000. Weights are random,
-drawn from a fixed seed.
+set-up short; phases 11-12 and 17 use the paper's 50,000. Weights are
+random, drawn from a fixed seed.
 """
+import ast
+import atexit
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1864,7 +1893,7 @@ def main():
                  and abs(up_h - 2 * formula) > 1e-6 * up_h):
             fail(f"{algo} {mode}: the engine's run is not as expected")
         del p_e, p_h
-    del shards, test_batch, data_e, train_e
+    del shards
 
     # ---- 13. federated LoRA fine-tuning of full-width qwen3-1.7b ---------
     from repro_torch.core.partition import partition_counts
@@ -2896,13 +2925,405 @@ def main():
     torch.cuda.empty_cache()
     say(f"[encdec-serve] phase 16: {time.perf_counter() - t16:.1f} s")
 
+    # ---- 17. round telemetry at the paper's setup ------------------------
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import monitor
+    from repro_torch.launch import train as train_cli
+    from repro_torch.telemetry import TelemetryConfig, read_ledger, split_runs
+    from repro_torch.telemetry import taps as taps_mod
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    tdir = Path(tempfile.mkdtemp(prefix="chip_smoke_telemetry_"))
+    atexit.register(shutil.rmtree, tdir, True)   # also when a check fails
+    shards = ClientShards.from_federated(data_e).to(dev)
+    ledger17 = str(tdir / "ledger.jsonl")
+    n_units = umap.num_units
+    counts_17 = {}
+
+    def add_counts(counts):
+        for n_, c in counts.items():
+            counts_17[n_] = counts_17.get(n_, 0) + c
+
+    def tele_cfg(fl, run_id, **kw):
+        return dataclasses.replace(fl, telemetry=TelemetryConfig(
+            ledger_path=ledger17, run_id=run_id, **kw))
+
+    def cuda_kernels(path):
+        """{kernel name: events} of the CUDA kernels in a Chrome trace."""
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        out = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                out[e["name"]] = out.get(e["name"], 0) + 1
+        return out
+
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        say(f"[telemetry] {what}: {laps[-1] - laps[-2]:.1f} s")
+
+    def close17(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(close17(x[k], y[k])
+                                                 for k in x)
+        return bool(np.allclose(x, y, rtol=EQUIV_TOL, atol=0))
+
+    def busy_ms(fn):
+        """Device busy ms of ``fn()`` under torch.profiler (the card's
+        activity only: the host's ops would add nothing to the sum)."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    tel = {}
+    for label, fl in (("vmap", fl_v), ("A", fl_a)):
+        r = ENGINE_ROUNDS
+        want_b = bytes_a_round(fl)
+        pdir = tdir / f"trace_{label}"
+        fl_on = tele_cfg(fl, f"engine/{label}", profile_rounds=(1, 2),
+                         profile_dir=str(pdir))
+        # 1. the zero-cost path: telemetry on against off, engine
+        (p_off, log_off), _, _ = run_engine(fl, r, eval_fn=eval_fn,
+                                            eval_every=2)
+        (p_on, log_on), c_on, wall_on = run_engine(fl_on, r,
+                                                   eval_fn=eval_fn,
+                                                   eval_every=2)
+        add_counts(c_on)
+        d_on = max_diff(p_on, p_off)
+        same = d_on == 0.0 and log_on.losses == log_off.losses
+        lim = 0.0
+        if not same:      # phase 11's rule: 2e-5 only if runs already differ
+            (p_2, log_2), _, _ = run_engine(fl, r, eval_fn=eval_fn,
+                                            eval_every=2)
+            if max_diff(p_2, p_off) != 0.0 or log_2.losses != log_off.losses:
+                lim = EQUIV_TOL
+            del p_2
+        want_l = per_round(counts_v if label == "vmap" else counts_a, ROUNDS)
+        say(f"[telemetry {label}] run_training_scan {r} rounds, eval_every=2,"
+            f" telemetry on (ledger, taps, full selection, profile_rounds=(1,"
+            f" 2)): {wall_on:.3f} s; against telemetry=None: params "
+            f"max_abs_diff {d_on:.3e}, losses equal "
+            f"{log_on.losses == log_off.losses}, bit for bit {same} (limit "
+            f"{lim}); launches a round {per_round(c_on, r)} (phases 4-7: "
+            f"{want_l})")
+        if d_on > lim or (lim == 0.0 and not same):
+            fail(f"telemetry {label}: telemetry on changed the engine's "
+                 f"trajectory by {d_on:.3e} (limit {lim})")
+        if per_round(c_on, r) != want_l:
+            fail(f"telemetry {label}: launches a round {per_round(c_on, r)}, "
+                 f"expected {want_l}")
+        # 2. the host driver with the engine's streams, same telemetry
+        fl_h = tele_cfg(fl, f"host/{label}")
+        (p_h, log_h), c_h, _ = run_host(fl_h, r, "device", eval_fn=eval_fn,
+                                        eval_every=2)
+        add_counts(c_h)
+        d_h = max_diff(p_h, p_on)
+        if d_h > lim or (lim == 0.0 and log_h.losses != log_on.losses):
+            fail(f"telemetry {label}: run_training(sampler='device') differs "
+                 f"from the engine by {d_h:.3e} (limit {lim})")
+        del p_off, p_on, p_h
+        # 3. the trace window: exactly rounds 1-2 (block [1, 3))
+        traces = sorted(os.listdir(pdir)) if pdir.is_dir() else []
+        if traces != ["rounds_1-2.json"]:
+            fail(f"telemetry {label}: trace files {traces}, expected "
+                 f"['rounds_1-2.json']")
+        kern = cuda_kernels(pdir / traces[0])
+        want_k = {"sqdiff_partials": 2, "sqdiff_units": 2}
+        if label == "A":
+            want_k["fused_uplink_ef_leaves"] = 2
+        got_k = {n_: sum(c for k_, c in kern.items() if n_ in k_) for n_ in
+                 ("sqdiff_partials", "sqdiff_units",
+                  "fused_uplink_ef_leaves", "fused_uplink_leaves",
+                  "masked_accumulate_leaves")}
+        say(f"[telemetry {label}] trace {traces[0]} "
+            f"({os.path.getsize(pdir / traces[0]) / 1e6:.1f} MB): FL kernels "
+            f"{got_k}; {sum(kern.values())} kernel events of "
+            f"{len(kern)} names in all")
+        if {n_: c for n_, c in got_k.items() if c} != want_k:
+            fail(f"telemetry {label}: the trace of rounds 1-2 holds {got_k}, "
+                 f"expected {want_k}; its most frequent kernels: "
+                 f"{sorted(kern.items(), key=lambda kv: -kv[1])[:8]}")
+        lap(f"{label}: zero-cost path, host driver, trace")
+        tel[label] = {"want_b": want_b, "lim": lim}
+
+    # 4. the ledger, every round of every run
+    segs = split_runs(read_ledger(ledger17))
+    by_id = {s_["meta"]["run_id"]: s_ for s_ in segs}
+    if sorted(by_id) != ["engine/A", "engine/vmap", "host/A", "host/vmap"]:
+        fail(f"telemetry: ledger segments {sorted(by_id)}")
+    peak_now = torch.cuda.max_memory_allocated()
+    with open(ledger17) as f:
+        lines = f.read().splitlines()
+    round_bytes = [len(l_) + 1 for l_ in lines if '"kind": "round"' in l_]
+    for label in ("vmap", "A"):
+        eng_s, host_s = by_id[f"engine/{label}"], by_id[f"host/{label}"]
+        want_b = tel[label]["want_b"]
+        for seg in (eng_s, host_s):
+            recs = seg["rounds"]
+            if [x["round"] for x in recs] != list(range(ENGINE_ROUNDS)) or \
+                    [x["round"] for x in seg["evals"]] != [0, 2, 3]:
+                fail(f"telemetry {label}: ledger rounds "
+                     f"{[x['round'] for x in recs]}, evals "
+                     f"{[x['round'] for x in seg['evals']]}")
+            for x in recs:
+                taps_x = x["taps"]
+                cols = np.asarray(x["selection"]).sum(axis=0).tolist()
+                problems = []
+                if taps_x["sel_count"] != [float(fl_v.top_n)] * n_units:
+                    problems.append(f"sel_count {taps_x['sel_count']}")
+                if cols != taps_x["sel_count"]:
+                    problems.append(f"selection column sums {cols}")
+                if x["comm"]["uplink_total"] != want_b:
+                    problems.append(f"uplink {x['comm']['uplink_total']}")
+                if label == "A" and not (
+                        "wire_bits" in taps_x and "wire_unit_bytes" in taps_x
+                        and math.isfinite(taps_x.get("state_residual_norm",
+                                                     math.nan))):
+                    problems.append(f"taps {sorted(taps_x)}")
+                if not x["wall_s"] > 0 or x["mem_peak_bytes"] is None or \
+                        x["mem_peak_bytes"] > peak_now:
+                    problems.append(f"wall_s {x['wall_s']} mem_peak_bytes "
+                                    f"{x['mem_peak_bytes']} (max allocated "
+                                    f"{peak_now})")
+                if problems:
+                    fail(f"telemetry {label} {seg['meta']['driver']} round "
+                         f"{x['round']}: {'; '.join(problems)}")
+        # the host driver's records equal the engine's, field by field
+        # (loss and taps within 2e-5 only where phase 11's rule allows)
+        for a, b in zip(eng_s["rounds"], host_s["rounds"]):
+            for key in ("loss", "comm", "uplink_cum_bytes", "taps",
+                        "selection"):
+                if a[key] != b[key] and not (
+                        tel[label]["lim"] > 0 and key in ("loss", "taps")
+                        and close17(a[key], b[key])):
+                    fail(f"telemetry {label} round {a['round']}: the host "
+                         f"driver's {key} differs from the engine's")
+        x0 = eng_s["rounds"][0]
+        say(f"[telemetry {label}] ledger: {ENGINE_ROUNDS} round records a run"
+            f" in both drivers, equal field by field (loss, comm, taps, "
+            f"selection, uplink); sel_count {x0['taps']['sel_count'][:3]}... "
+            f"in every round, selection column sums equal; uplink "
+            f"{x0['comm']['uplink_total']:.0f} B a round, exact (want "
+            f"{want_b}); taps {sorted(x0['taps'])}; wall_s "
+            f"{[round(x['wall_s'], 4) for x in eng_s['rounds']]}; "
+            f"mem_peak_bytes {x0['mem_peak_bytes']} <= {peak_now}"
+            + (f"; state_residual_norm "
+               f"{[x['taps']['state_residual_norm'] for x in eng_s['rounds']]}"
+               if label == "A" else ""))
+
+    # 5. the taps of one round against the plain Eq. 3 reduction
+    lap("ledger checks")
+    rd17 = KeyedDraws(SEED + 17)(0)
+    cl17 = rd17.clients(fl_v.num_clients, fl_v.clients_per_round).long()
+    j17 = rd17.indices(shards.part_sizes.cpu()[cl17], fl_v.batch_per_client)
+    idx17 = cl17.to(dev)
+    batch17 = shards.gather(idx17, j17.to(dev))
+    sizes17 = shards.data_sizes()[idx17]
+    locals17, _ = torch.func.vmap(
+        make_local_update(loss_fn, sgd(fl_v.lr), fl_v.local_steps),
+        in_dims=(None, 0))(params0, batch17)
+    divs_p = umap.divergence(locals17, params0,
+                             sqdiff_rowsum=kref.sqdiff_rowsum)
+    del locals17
+    taps_ms, taps_host_ms = {}, {}
+    for label, fl in (("vmap", fl_v), ("A", fl_a)):
+        fl_t = dataclasses.replace(fl, telemetry=TelemetryConfig())
+        strat = make_strategy(fl_t)
+        st = strat.init_state(params0, fl.num_clients)
+        view = fl_server._state_round_view(st, idx17)
+        _, m17 = build_round_vmap(loss_fn, umap, fl_t)(
+            params0, batch17, sizes17, view)
+        tp17 = m17["taps"]
+        compare(f"telemetry {label} taps div_mean vs plain Eq. 3",
+                tp17["div_mean"], divs_p.mean(0))
+        compare(f"telemetry {label} taps div_max vs plain Eq. 3",
+                tp17["div_max"], divs_p.amax(0))
+        if not torch.equal(tp17["sel_count"], m17["selection"].sum(0)):
+            fail(f"telemetry {label}: sel_count is not the selection's sum")
+        extra = None
+        if label == "A":
+            rows = m17["state"]["client"]["residual"]
+            want_n = math.sqrt(sum(float((l_.double() ** 2).sum())
+                                   for l_ in tree_leaves(rows)))
+            compare("telemetry A taps state_residual_norm vs float64",
+                    tp17["state_residual_norm"].reshape(1),
+                    torch.tensor([want_n], device=dev))
+            extra = {"wire_unit_bytes": m17["wire"]["unit_bytes"],
+                     "wire_bits": m17["wire"]["bits"]}
+        # the largest of 3 profiles of 20 calls: the profiler now and then
+        # drops kernel records (even all of a short profile), which only
+        # lowers a sum
+        reps = 20
+
+        def taps20(strat=strat, m17=m17, extra=extra):
+            return [taps_mod.collect(strat, m17.get("state"),
+                                     m17["selection"], m17["divergence"],
+                                     umap, extra=extra) for _ in range(reps)]
+
+        taps_ms[label] = max(busy_ms(taps20) / reps for _ in range(3))
+        # and their host enqueue: the same calls without a sync, median of 3
+        enq_taps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            h = time.perf_counter()
+            taps20()
+            enq_taps.append((time.perf_counter() - h) / reps * 1e3)
+        taps_host_ms[label] = statistics.median(enq_taps)
+        del m17, tp17, view, st
+    if failures:
+        fail(f"telemetry taps disagree with plain: {failures}")
+
+    # 6. no host sync in a telemetry-on block, one copy a block; then
+    # 2-round blocks with telemetry off and on, in turns: wall-clock
+    # (enqueue to pull) and host enqueue; device busy of a 1-round block
+    # under the profiler (a round is 40,000 kernels: the profiler's
+    # parsing, not the card, takes seconds a round)
+    lap("taps against plain")
+    # the time the host spends in Python's garbage collector, a block
+    gc_s, gc_t0 = [0.0], [0.0]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_t0[0]
+
+    gc.callbacks.append(gc_clock)
+    host_sizes17, all_sizes17 = shards.part_sizes.cpu(), shards.data_sizes()
+    draws17 = KeyedDraws(SEED)
+    blk = {}
+    for label, fl in (("vmap", fl_v), ("A", fl_a)):
+        runs = {False: block_fn(loss_fn, umap, fl),
+                True: block_fn(loss_fn, umap, dataclasses.replace(
+                    fl, telemetry=TelemetryConfig()))}
+
+        def fresh17(fl=fl):
+            return (params0, make_strategy(fl).init_state(
+                params0, fl.num_clients), comm_acc_init(dev))
+
+        c17 = fresh17()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, per17 = runs[True](c17, shards, all_sizes17, host_sizes17,
+                                  draws17, 0, 2)
+        except RuntimeError as e:
+            fail(f"telemetry {label}: a block synchronised the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host17, copies = fl_server._pull(per17)
+        nbytes = sum(t_.numel() * t_.element_size()
+                     for t_ in tree_leaves(host17))
+        if copies != 1 or not all(bool(torch.isfinite(t_).all())
+                                  for t_ in tree_leaves(host17)):
+            fail(f"telemetry {label}: the block came back in {copies} "
+                 f"copies")
+        del c17, per17, host17
+        times = {False: [], True: []}
+        for on in (False, True, True, False) * 2 + (False, True):
+            c17 = fresh17()
+            torch.cuda.synchronize()
+            g0 = gc_s[0]
+            h = time.perf_counter()
+            c17, per17 = runs[on](c17, shards, all_sizes17, host_sizes17,
+                                  draws17, 0, 2)
+            enq_s = time.perf_counter() - h
+            fl_server._pull(per17)
+            times[on].append((enq_s / 2 * 1e3,
+                              (time.perf_counter() - h) / 2 * 1e3,
+                              (gc_s[0] - g0) / 2 * 1e3))
+            del c17, per17
+        busy = {on: busy_ms(lambda on=on: runs[on](
+            fresh17(), shards, all_sizes17, host_sizes17, draws17, 0, 1))
+            for on in (False, True)}
+        blk[label] = {on: (statistics.median(x[0] for x in times[on]),
+                           statistics.median(x[1] for x in times[on]),
+                           busy[on], [round(x[1], 1) for x in times[on]],
+                           statistics.median(x[2] for x in times[on]))
+                      for on in (False, True)}
+        say(f"[telemetry {label}] a telemetry-on 2-round block under "
+            f"set_sync_debug_mode('error'): 0 syncs while it enqueued; then "
+            f"{copies} device->host copy of {nbytes} B (losses, uplink, "
+            f"comm, taps, selection); off: 1 copy of 16 B")
+    gc.callbacks.remove(gc_clock)
+    lap("blocks")
+
+    # 7. the monitor over the phase's ledger
+    buf = io.StringIO()
+    n_segs = monitor.render(ledger17, out=buf, bins=40)
+    text = buf.getvalue()
+    if n_segs != 4 or "per-layer mean divergence" not in text or \
+            "per-layer uploads" not in text or \
+            "state_residual_norm" not in text:
+        fail(f"telemetry: the monitor rendered {n_segs} segments:\n{text}")
+    say(f"[monitor] {n_segs} segments; the first lines:")
+    for l_ in text.splitlines()[:14]:
+        say(f"[monitor] {l_}")
+
+    # 8. times
+    lap("monitor")
+    bytes_round = statistics.mean(round_bytes)
+    for label in ("vmap", "A"):
+        (e_off, w_off, b_off, raw_off, gc_off), \
+            (e_on, w_on, b_on, raw_on, gc_on) = (blk[label][False],
+                                                 blk[label][True])
+        say(f"[times] telemetry {label} (engine, 2-round blocks, median of 5,"
+            f" off and on in turns): round wall-clock off {w_off:.3f} ms "
+            f"{raw_off}, on {w_on:.3f} ms {raw_on} "
+            f"({(w_on / w_off - 1) * 100:+.2f} %); in the garbage collector "
+            f"off {gc_off:.3f}, on {gc_on:.3f} ms a round; host enqueue "
+            f"off {e_off:.3f} ms, on {e_on:.3f} ms a round; device busy (a "
+            f"1-round block) off {b_off:.3f} ms, on {b_on:.3f} ms, idle "
+            f"share off "
+            f"{1 - b_off / w_off:.4f}, on {1 - b_on / w_on:.4f}; the taps' "
+            f"own device time {taps_ms[label]:.4f} ms a round "
+            f"(torch.profiler, the largest of 3 profiles of 20 calls) and "
+            f"host enqueue {taps_host_ms[label]:.4f} ms a round (median of "
+            f"3 x 20 calls) ({smi})")
+    say(f"[times] telemetry ledger: {len(round_bytes)} round records, "
+        f"{bytes_round:.0f} B a round on average (the (20, 9) selection, "
+        f"9 x 3 tap floats, comm); the file {os.path.getsize(ledger17)} B")
+
+    # 9. the launcher at the paper's scale
+    out = io.StringIO()
+    t_cli = time.perf_counter()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(["--task", "cifar", "--paper-scale", "--rounds", "2",
+                        "--eval-every", "1"])
+    add_counts(ops.launch_counts())
+    t_cli = time.perf_counter() - t_cli
+    for l_ in out.getvalue().splitlines():
+        say(f"[cli] {l_}")
+    summary = [l_ for l_ in out.getvalue().splitlines()
+               if l_.startswith("comm summary: ")]
+    summary = ast.literal_eval(summary[-1][len("comm summary: "):]) \
+        if summary else {}
+    say(f"[cli] python -m repro_torch.launch.train --task cifar --paper-scale"
+        f" --rounds 2 --eval-every 1: {t_cli:.1f} s (data set-up included); "
+        f"uplink {summary.get('uplink_MB')} MB, expected exactly "
+        f"{2 * per_round_up / 1e6} MB (2 fedldf rounds)")
+    if summary.get("rounds") != 2 or \
+            summary.get("uplink_MB") != 2 * per_round_up / 1e6:
+        fail(f"launcher: comm summary {summary}")
+    lap("launcher")
+    del shards, test_batch, data_e, train_e
+    torch.cuda.empty_cache()
+    say(f"[telemetry] phase 17: {time.perf_counter() - t17:.1f} s; launches "
+        f"on its path {counts_17}")
+
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/divergence.cu",
          "replaces": "src/repro/kernels/divergence.py:27",
          "launches": sum(c["sqdiff_rowsum"]
                          for c in (counts_v, counts_s, counts_a, counts_b,
-                                   *lora_counts.values())),
+                                   *lora_counts.values(), counts_17)),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
          "plain_ms": sq_plain, "bound_ms": sq_bound_v, "bound_by": sq_by,
          "library_ms": None},
@@ -2926,7 +3347,8 @@ def main():
          "source": "src/repro_torch/kernels/csrc/uplink.cu",
          "replaces": "src/repro/kernels/uplink.py:117",
          "launches": (counts_a["fused_uplink_ef"]
-                      + lora_counts["A"]["fused_uplink_ef"]),
+                      + lora_counts["A"]["fused_uplink_ef"]
+                      + counts_17.get("fused_uplink_ef", 0)),
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},

@@ -4,6 +4,7 @@ configs plus the paper's own VGG-9 (``vgg9_cifar10``).
 The arch modules are data only. ``get_config(arch_id)`` returns the exact
 full-scale :class:`~repro_torch.models.config.ModelConfig`;
 ``get_config(arch_id).reduced()`` is the small variant the CPU tests use.
+``vgg9()`` and ``vgg9_fl(algo)`` give the paper's own model and FL setup.
 """
 from __future__ import annotations
 
@@ -33,3 +34,13 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCHS[arch_id]}")
     return mod.config()
+
+
+def vgg9():
+    mod = importlib.import_module("repro_torch.configs.vgg9_cifar10")
+    return mod.config()
+
+
+def vgg9_fl(algo: str = "fedldf"):
+    mod = importlib.import_module("repro_torch.configs.vgg9_cifar10")
+    return mod.fl_config(algo)

@@ -122,3 +122,12 @@ class CommMeter:
         if self.fedavg_uplink_bytes == 0:
             return 0.0
         return 1.0 - self.uplink_bytes / self.fedavg_uplink_bytes
+
+    def summary(self) -> dict:
+        return {
+            "rounds": self.rounds,
+            "uplink_MB": self.uplink_bytes / 1e6,
+            "downlink_MB": self.downlink_bytes / 1e6,
+            "fedavg_uplink_MB": self.fedavg_uplink_bytes / 1e6,
+            "uplink_savings_frac": self.savings_frac,
+        }

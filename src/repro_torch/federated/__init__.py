@@ -22,6 +22,7 @@ from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
                                               strategy_registry,
                                               unregister_strategy)
 from repro_torch.launch.sharding import init_residual_store
+from repro_torch.telemetry import TelemetryConfig
 
 __all__ = ["ALGOS", "CompressionConfig", "make_local_update",
            "plain_sgd_client", "KeyedDraws", "round_generators",
@@ -31,7 +32,7 @@ __all__ = ["ALGOS", "CompressionConfig", "make_local_update",
            "FedADPOptions", "FedLAMAOptions", "FedLPOptions",
            "ParamPartition", "QuantizedUpload", "init_residual_store",
            "make_strategy", "register_strategy", "registered_algos",
-           "strategy_registry", "unregister_strategy"]
+           "strategy_registry", "TelemetryConfig", "unregister_strategy"]
 
 
 def __getattr__(name):   # PEP 562: ALGOS tracks the live strategy registry

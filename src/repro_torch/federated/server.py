@@ -63,12 +63,23 @@ frozen)`` with the frozen leaves the caller's own tensors. An
 all-trainable partition gives the rounds of ``partition=None`` bit for
 bit.
 
-Not yet ported (ROADMAP Queue 1): the JAX-key sampler, mesh sharding and
-telemetry.
+Telemetry (``FLConfig(telemetry=TelemetryConfig(...))``, see
+:mod:`repro_torch.telemetry`): the round builders add ``metrics["taps"]``;
+both drivers write the JSONL round ledger, report through the progress
+sink, sample wall-clock and peak device memory, and open a
+``torch.profiler`` window over ``profile_rounds``. The engine stacks a
+block's comm, taps and selection on the device and pulls them with its
+losses in the block's one pull. ``telemetry=None`` leaves every round,
+block and printed line as it is without telemetry; with it on, the
+trajectories are the same bit for bit (taps only read).
+
+Not yet ported (ROADMAP Queue 1): the JAX-key sampler and mesh sharding,
+with telemetry's mesh half (item 11).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
 from typing import Any, Callable, Optional
 
@@ -77,7 +88,7 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
-from repro_torch.core.partition import ParamPartition
+from repro_torch.core.partition import ParamPartition, partition_counts
 from repro_torch.core.units import (UnitMap, host_to_device, tree_map,
                                     tree_stack_index)
 from repro_torch.core.wire import CompressionConfig
@@ -89,6 +100,10 @@ from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
                                               make_strategy,
                                               registered_algos)
 from repro_torch.optim.opt import Optimizer, sgd
+from repro_torch.telemetry import (ProgressSink, RoundLedger,
+                                   TelemetryConfig)
+from repro_torch.telemetry import profiling as prof_mod
+from repro_torch.telemetry import taps as taps_mod
 
 Pytree = Any
 
@@ -154,6 +169,11 @@ class FLConfig:
     fedlama_lam: int = 2           # FedLAMA long-interval multiplier λ
     quantize_bits: int = 0         # quantized delta upload (0 = off)
     error_feedback: bool = False
+    # observability: metric taps + JSONL round ledger + profiling hooks
+    # (see repro_torch.telemetry). None (default) is the zero-cost path:
+    # rounds, blocks and fixed-seed trajectories are bit-identical to a
+    # config without telemetry.
+    telemetry: Optional[TelemetryConfig] = None
 
     # ------------------------------------------------------------------
     def _normalize_algo_options(self, scls):
@@ -277,6 +297,11 @@ class FLConfig:
             raise TypeError(
                 "FLConfig.partition must be a repro_torch.core.partition."
                 f"ParamPartition or None, got {type(self.partition)}")
+        if self.telemetry is not None and \
+                not isinstance(self.telemetry, TelemetryConfig):
+            raise TypeError(
+                "FLConfig.telemetry must be a repro_torch.telemetry."
+                f"TelemetryConfig or None, got {type(self.telemetry)}")
 
 
 def _full_fp32() -> None:
@@ -295,9 +320,12 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     (new_params, metrics)`` with batch leaves ``(K, B, ...)`` and
     ``metrics`` holding ``loss``, ``comm``, ``selection``, ``divergence``
     (the (K, U) Eq. 3 matrix, or None), ``wire`` (the packed payload's
-    accounting, or None) and, when a ``state`` is given, the updated
-    ``state``. ``uniform(shape)`` is the round's algorithm stream (the
-    reference's per-round key), which the random policies draw from.
+    accounting, or None), when a ``state`` is given the updated ``state``,
+    and with ``flcfg.telemetry.taps`` the round's ``taps``
+    (:func:`repro_torch.telemetry.taps.collect`; a packed round adds
+    ``wire_unit_bytes`` and ``wire_bits``). ``uniform(shape)`` is the
+    round's algorithm stream (the reference's per-round key), which the
+    random policies draw from.
 
     With error feedback ``state`` is required: its client entry
     ``"residual"`` holds the participants' (K, ...) residual rows (see
@@ -308,6 +336,7 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     local_update = _local_update(loss_fn, flcfg, opt)
     strategy = make_strategy(flcfg)
     k = flcfg.clients_per_round
+    taps_on = _taps_on(flcfg)
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
                  state: Optional[dict] = None, uniform=None,
@@ -370,6 +399,14 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
         if state is not None:
             metrics["state"] = strategy.update_state(state, selection, divs,
                                                      umap, uniform=uniform)
+        if taps_on:
+            # client rows in the post-update_state view hold the updated
+            # residuals (update_state keeps entries it does not own)
+            metrics["taps"] = taps_mod.collect(
+                strategy, metrics.get("state"), selection, divs, umap,
+                extra=(None if wire is None else
+                       {"wire_unit_bytes": wire["unit_bytes"],
+                        "wire_bits": wire["bits"]}))
         return new_params, metrics
 
     return round_fn
@@ -397,6 +434,7 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
             f"strategy {strategy.name!r} declares supports_scan=False")
     update = _local_update(loss_fn, flcfg, opt)
     k = flcfg.clients_per_round
+    taps_on = _taps_on(flcfg)
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
                  state: Optional[dict] = None, uniform=None,
@@ -452,9 +490,16 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
         if state is not None:
             metrics["state"] = strategy.update_state(state, selection, divs,
                                                      umap, uniform=uniform)
+        if taps_on:
+            metrics["taps"] = taps_mod.collect(
+                strategy, metrics.get("state"), selection, divs, umap)
         return new_params, metrics
 
     return round_fn
+
+
+def _taps_on(flcfg: FLConfig) -> bool:
+    return flcfg.telemetry is not None and flcfg.telemetry.taps
 
 
 def _local_update(loss_fn, flcfg: FLConfig, opt: Optimizer | None):
@@ -572,26 +617,61 @@ def _round_uniform(rd, device) -> Callable:
     return uniform
 
 
-def _progress(t: int, loss: float, test_error: Optional[float] = None,
-              uplink_bytes: Optional[float] = None) -> None:
-    """``verbose=True`` progress line, in the reference's ProgressSink
-    "human" format (the sink itself is ROADMAP Queue 1, item 8)."""
-    if test_error is not None:
-        print(f"round {t:4d} loss {loss:.4f} test_err {test_error:.4f} "
-              f"uplink {uplink_bytes / 1e6:.1f}MB")
-    else:
-        print(f"round {t:4d} loss {loss:.4f}")
-
-
 def _split(params: Pytree, flcfg: FLConfig):
-    """``(trainable, frozen, merged)``: the params split once by
-    ``flcfg.partition`` (``frozen`` None without one) and the function that
-    reassembles a full model from trainable leaves."""
+    """``(trainable, frozen, merged, partition_info)``: the params split
+    once by ``flcfg.partition`` (``frozen`` None without one), the function
+    that reassembles a full model from trainable leaves, and the
+    partition's trainable/frozen totals for the ledger header (None
+    without one)."""
     partition = flcfg.partition
     if partition is None:
-        return params, None, lambda p: p
+        return params, None, lambda p: p, None
+    info = partition_counts(partition, params)
     trainable, frozen = partition.split(params)
-    return trainable, frozen, lambda p: partition.merge(p, frozen)
+    return (trainable, frozen, lambda p: partition.merge(p, frozen), info)
+
+
+def _run_meta(flcfg: FLConfig, *, driver: str, umap: UnitMap, seed: int,
+              sampler: str, start_round: int, rounds: int, run_id: str,
+              partition_info: Optional[dict] = None) -> dict:
+    """Ledger run-header metadata, the reference's key set: everything a
+    consumer needs to label a segment without rebuilding the model (the
+    layer-unit names index every per-layer tap vector; under a partition
+    they are the trainable units). ``sampler`` is the port's own
+    (``"host"`` or ``"device"``; the engine's streams are ``"device"``).
+    ``agg`` and ``mesh`` stay None and ``shard_samples`` False until the
+    mesh slice (ROADMAP Queue 1, item 11)."""
+    comp = flcfg.compression
+    return {"run_id": run_id, "driver": driver, "algo": flcfg.algo,
+            "agg": None, "shard_samples": False,
+            "partition": partition_info,
+            "mode": flcfg.mode, "sampler": sampler, "seed": seed,
+            "start_round": start_round, "rounds": rounds,
+            "num_clients": flcfg.num_clients,
+            "clients_per_round": flcfg.clients_per_round,
+            "top_n": flcfg.top_n,
+            "quantize_bits": flcfg.quantize_bits,
+            "compression": (None if comp is None else
+                            {"bits": comp.bits,
+                             "error_feedback": comp.error_feedback,
+                             "fused": comp.fused}),
+            "mesh": None,
+            "units": list(umap.names),
+            "unit_bytes": [float(b) for b in umap.unit_bytes]}
+
+
+def _telemetry(flcfg: FLConfig, verbose: bool, device, **meta):
+    """The driver's ``(sink, profile window, ledger or None, sample
+    system?)`` from ``flcfg.telemetry``; ``meta`` goes to
+    :func:`_run_meta` for the ledger's run header."""
+    tele = flcfg.telemetry
+    sink = ProgressSink.for_run(tele, verbose)
+    win = prof_mod.ProfileWindow.from_config(tele, device)
+    ledger = None
+    if tele is not None and tele.wants_ledger:
+        ledger = RoundLedger(tele.ledger_path, meta=_run_meta(
+            flcfg, run_id=tele.run_id, **meta))
+    return sink, win, ledger, tele is not None and tele.sample_system
 
 
 def _device_shards(fldata, device) -> ClientShards:
@@ -654,10 +734,11 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         raise ValueError(f"sampler must be 'host' or 'device', got "
                          f"{sampler!r}")
     device = torch.device(device)
-    params, frozen, merged = _split(
+    params, frozen, merged, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
     round_fn = build_round_fn(loss_fn, umap, flcfg)
+    prof_mod.note_engine_cache("round", hit=False)
     strategy = make_strategy(flcfg)
     state = _initial_state(strategy, params, flcfg, server_state, device)
     draws = draws if draws is not None else KeyedDraws(seed)
@@ -671,36 +752,62 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         rng = np.random.default_rng(seed)
         host_all_sizes = fldata.data_sizes()
     log = TrainLog()
+    sink, win, ledger, sample_sys = _telemetry(
+        flcfg, verbose, device, driver="host", umap=umap, seed=seed,
+        sampler=sampler, start_round=start_round, rounds=rounds,
+        partition_info=pinfo)
     last = start_round + rounds - 1
-    for t in range(start_round, start_round + rounds):
-        rd = draws(t)
-        if sampler == "device":
-            clients = rd.clients(n_, k_).to(torch.int64)
-            j = rd.indices(host_sizes[clients], b_)
-            idx = host_to_device(clients, device)
-            batch = shards.gather(idx, host_to_device(j, device))
-            sizes = all_sizes[idx]
-        else:
-            clients = sample_clients(rng, n_, k_)
-            batch = fldata.round_batch(clients, b_, rng)
-            batch = {name: torch.from_numpy(v).to(device)
-                     for name, v in batch.items()}
-            sizes = torch.from_numpy(host_all_sizes[clients]).to(device)
-            idx = torch.from_numpy(clients).to(device)
-        params, state, metrics = _step(round_fn, params, state, batch, sizes,
-                                       idx, rd, device, frozen)
-        log.meter.update(metrics["comm"])
-        log.rounds.append(t)
-        loss_t = float(metrics["loss"])     # device sync
-        log.losses.append(loss_t)
-        log.uplink_mb.append(log.meter.uplink_bytes / 1e6)
-        if eval_fn is not None and (t % eval_every == 0 or t == last):
-            err = float(eval_fn(merged(params)))
-            log.test_errors.append((t, err, log.meter.uplink_bytes))
-            if verbose:
-                _progress(t, loss_t, err, log.meter.uplink_bytes)
-        elif verbose and t % 10 == 0:
-            _progress(t, loss_t)
+    try:
+        for t in range(start_round, start_round + rounds):
+            win.round_begin(t)
+            wall0 = time.perf_counter() if sample_sys else None
+            rd = draws(t)
+            if sampler == "device":
+                clients = rd.clients(n_, k_).to(torch.int64)
+                j = rd.indices(host_sizes[clients], b_)
+                idx = host_to_device(clients, device)
+                batch = shards.gather(idx, host_to_device(j, device))
+                sizes = all_sizes[idx]
+            else:
+                clients = sample_clients(rng, n_, k_)
+                batch = fldata.round_batch(clients, b_, rng)
+                batch = {name: torch.from_numpy(v).to(device)
+                         for name, v in batch.items()}
+                sizes = torch.from_numpy(host_all_sizes[clients]).to(device)
+                idx = torch.from_numpy(clients).to(device)
+            params, state, metrics = _step(round_fn, params, state, batch,
+                                           sizes, idx, rd, device, frozen)
+            log.meter.update(metrics["comm"])
+            log.rounds.append(t)
+            loss_t = float(metrics["loss"])     # device sync
+            log.losses.append(loss_t)
+            log.uplink_mb.append(log.meter.uplink_bytes / 1e6)
+            if ledger is not None:
+                # the float() pull above synced the round, so wall_s is
+                # the round's time, not its enqueue
+                wall_s = (time.perf_counter() - wall0
+                          if wall0 is not None else None)
+                mem = (prof_mod.device_memory_peak(device) if sample_sys
+                       else None)
+                out = _pull(_round_outputs(metrics, flcfg.telemetry))[0]
+                ledger.round(t, loss_t, out["comm"], log.meter.uplink_bytes,
+                             taps=out.get("taps"),
+                             selection=out.get("selection"),
+                             wall_s=wall_s, mem_peak_bytes=mem)
+            if eval_fn is not None and (t % eval_every == 0 or t == last):
+                err = float(eval_fn(merged(params)))
+                log.test_errors.append((t, err, log.meter.uplink_bytes))
+                if ledger is not None:
+                    ledger.eval(t, err, log.meter.uplink_bytes)
+                sink.round(t, loss_t, test_error=err,
+                           uplink_bytes=log.meter.uplink_bytes)
+            elif sink.enabled and t % 10 == 0:
+                sink.round(t, loss_t)
+            win.round_end(t)
+    finally:
+        win.close()
+        if ledger is not None:
+            ledger.close()
     log.final_state = state
     return merged(params), log
 
@@ -718,6 +825,44 @@ def _eval_cuts(rounds: int, eval_every: int, do_eval: bool) -> list[int]:
                    if t % eval_every == 0 or t == rounds - 1})
 
 
+def _round_outputs(metrics: dict, tele: TelemetryConfig) -> dict:
+    """What the ledger records of a round's metrics: ``comm``, and the
+    ``taps`` and ``selection`` when ``tele`` asks for them."""
+    out = {"comm": metrics["comm"]}
+    if tele.taps:
+        out["taps"] = metrics["taps"]
+    if tele.full_selection:
+        out["selection"] = metrics["selection"]
+    return out
+
+
+def _pull(tree: dict) -> tuple[dict, int]:
+    """A nested dict of device tensors on the host, in one copy a dtype:
+    the leaves of each dtype are flattened into one buffer, copied once
+    (the one sync) and split back into their shapes. Returns the host
+    tree and the number of copies."""
+    items: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, v in node.items():
+                walk(v, path + (key,))
+        else:
+            items.setdefault(node.dtype, []).append((path, node))
+
+    walk(tree, ())
+    out: dict = {}
+    for group in items.values():
+        buf = torch.cat([t.reshape(-1) for _, t in group]).cpu()
+        for (path, t), piece in zip(group, buf.split(
+                [t.numel() for _, t in group])):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = piece.view(t.shape)
+    return out, len(items)
+
+
 def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
     """Multi-round block: ``run_block(carry, shards, all_sizes, host_sizes,
     draws, t0, num) -> (carry, per_round)`` advances the carry (params,
@@ -728,10 +873,14 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
     memory; nothing in the loop synchronises. ``per_round`` holds the
     (num,) device tensors ``loss`` and ``uplink_bytes`` (cumulative, f32,
     as the reference's scan carry); a stateless strategy carries ``None``.
-    ``frozen`` is the frozen base of a partitioned run (see
-    :func:`build_round_vmap`).
+    With ``flcfg.telemetry`` it also holds each round's ``comm`` (a dict of
+    (num,) tensors) and, as the config asks, ``taps`` (a dict of (num,
+    ...) tensors) and ``selection`` (num, K, U), stacked on the device at
+    the block's end; the carry does not grow. ``frozen`` is the frozen base
+    of a partitioned run (see :func:`build_round_vmap`).
     """
     round_fn = build_round_fn(loss_fn, umap, flcfg)
+    tele = flcfg.telemetry
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
 
@@ -752,6 +901,7 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
         j_d = drawn[clients.numel():].view(j.shape)
         losses = torch.empty(num, dtype=torch.float32, device=device)
         uplink = torch.empty(num, dtype=torch.float32, device=device)
+        outs = []
         for i, rd in enumerate(rds):
             idx = clients_d[i]
             params, state, metrics = _step(
@@ -760,7 +910,12 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
             acc = comm_mod.comm_acc_update(acc, metrics["comm"])
             losses[i] = metrics["loss"]
             uplink[i] = acc["uplink_bytes"]
-        return (params, state, acc), {"loss": losses, "uplink_bytes": uplink}
+            if tele is not None:
+                outs.append(_round_outputs(metrics, tele))
+        per_round = {"loss": losses, "uplink_bytes": uplink}
+        if outs:
+            per_round.update(tree_map(lambda *ls: torch.stack(ls), *outs))
+        return (params, state, acc), per_round
 
     return run_block
 
@@ -799,11 +954,12 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     ``flcfg.partition`` is handled as in :func:`run_training`.
     """
     device = torch.device(device)
-    params, frozen, merged = _split(
+    params, frozen, merged, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
     shards = _device_shards(fldata, device)
     run_block = _build_block_fn(loss_fn, umap, flcfg)
+    prof_mod.note_engine_cache("block", hit=False)
     strategy = make_strategy(flcfg)
     state0 = _initial_state(strategy, params, flcfg, server_state, device)
     carry = (params, state0, comm_mod.comm_acc_init(device))
@@ -811,26 +967,61 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     host_sizes = shards.part_sizes.cpu()
     draws = draws if draws is not None else KeyedDraws(seed)
     log = TrainLog()
+    sink, win, ledger, sample_sys = _telemetry(
+        flcfg, verbose, device, driver="scan", umap=umap, seed=seed,
+        sampler="device", start_round=start_round, rounds=rounds,
+        partition_info=pinfo)
     t0 = 0
-    for cut in _eval_cuts(rounds, eval_every, eval_fn is not None):
-        num = cut - t0
-        carry, per_round = run_block(carry, shards, all_sizes, host_sizes,
-                                     draws, start_round + t0, num, frozen)
-        # the block's one host pull
-        losses, uplink = torch.stack([per_round["loss"],
-                                      per_round["uplink_bytes"]]).cpu()
-        log.rounds.extend(range(start_round + t0, start_round + cut))
-        log.losses.extend(float(x) for x in losses)
-        log.uplink_mb.extend(float(u) / 1e6 for u in uplink)
-        t_last = start_round + cut - 1
-        if eval_fn is not None:
-            err = float(eval_fn(merged(carry[0])))
-            log.test_errors.append((t_last, err, float(uplink[-1])))
-            if verbose:
-                _progress(t_last, float(losses[-1]), err, float(uplink[-1]))
-        elif verbose:
-            _progress(t_last, float(losses[-1]))
-        t0 = cut
+    try:
+        for cut in _eval_cuts(rounds, eval_every, eval_fn is not None):
+            num = cut - t0
+            win.block_begin(start_round + t0, start_round + cut)
+            wall0 = time.perf_counter() if sample_sys else None
+            carry, per_round = run_block(carry, shards, all_sizes,
+                                         host_sizes, draws, start_round + t0,
+                                         num, frozen)
+            # the block's one host pull (one copy a dtype: a single f32
+            # copy of losses, uplink, comm, taps and selection)
+            host = _pull(per_round)[0]
+            losses, uplink = host["loss"], host["uplink_bytes"]
+            # the pull synced the block, so its wall time is the block's
+            # time; a round's is the block's over num
+            block_wall = (time.perf_counter() - wall0
+                          if wall0 is not None else None)
+            log.rounds.extend(range(start_round + t0, start_round + cut))
+            log.losses.extend(float(x) for x in losses)
+            log.uplink_mb.extend(float(u) / 1e6 for u in uplink)
+            if ledger is not None:
+                wall_each = (block_wall / num
+                             if block_wall is not None else None)
+                mem = (prof_mod.device_memory_peak(device) if sample_sys
+                       else None)
+                for i in range(num):
+                    ledger.round(
+                        start_round + t0 + i, losses[i],
+                        tree_map(lambda a, i=i: a[i], host["comm"]),
+                        uplink[i],
+                        taps=(tree_map(lambda a, i=i: a[i], host["taps"])
+                              if "taps" in host else None),
+                        selection=(host["selection"][i]
+                                   if "selection" in host else None),
+                        wall_s=wall_each, mem_peak_bytes=mem)
+            t_last = start_round + cut - 1
+            if eval_fn is not None:
+                err = float(eval_fn(merged(carry[0])))
+                log.test_errors.append((t_last, err, float(uplink[-1])))
+                if ledger is not None:
+                    ledger.eval(t_last, err, float(uplink[-1]))
+                sink.round(t_last, float(losses[-1]), test_error=err,
+                           uplink_bytes=float(uplink[-1]))
+            elif sink.enabled:
+                sink.round(t_last, float(losses[-1]))
+            win.block_end(start_round + cut)
+            t0 = cut
+    finally:
+        win.close()
+        if ledger is not None:
+            ledger.close()
     params, final_state, acc = carry
     log.meter = comm_mod.CommMeter.from_accumulator(acc)
     log.final_state = final_state

@@ -63,9 +63,13 @@ Capability flags read by ``FLConfig`` and the engines:
 - ``transforms_upload``, ``tracks_residuals``, ``packed_upload`` — engine
   dispatch for the hooks above.
 
+Telemetry: ``telemetry_taps(state, selection, divs, umap) -> dict`` gives
+the round's per-layer summaries for ``FLConfig(telemetry=...)`` (see
+:meth:`FLStrategy.telemetry_taps`).
+
 The reference's mesh hooks (``supports_mesh``, ``psum_parts``,
-``uplink_psum_parts``, ``state_specs``) and telemetry taps wait for their
-slices (ROADMAP Queue 1, items 8 and 11).
+``uplink_psum_parts``, ``state_specs``) wait for the mesh slice (ROADMAP
+Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -75,7 +79,8 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
-from repro_torch.core.units import UnitMap
+from repro_torch.core.units import UnitMap, tree_leaves
+from repro_torch.telemetry.taps import sq_sum
 
 Pytree = Any
 
@@ -182,6 +187,46 @@ class FLStrategy:
             selection, umap, divergence_feedback=self.needs_divergence,
             param_bytes_override=param_bytes_override,
             unit_bytes_override=unit_bytes_override)
+
+    # ---- telemetry taps (observability; read-only like every hook) ----
+    # global-state entries of at most this many elements are passed through
+    # verbatim (FedLAMA's (U,) interval/ttl vectors); larger entries are
+    # summarised by their Frobenius norm instead.
+    tap_passthrough_max: int = 256
+
+    def telemetry_taps(self, state: Optional[dict],
+                       selection: torch.Tensor,
+                       divs: Optional[torch.Tensor],
+                       umap: UnitMap) -> dict:
+        """Per-round observability dict for
+        ``FLConfig(telemetry=TelemetryConfig(taps=True))``: a flat ``{name:
+        tensor}`` of small summaries recorded into the round ledger. Called
+        once a round with ``selection`` the (K, U) matrix, ``divs`` the
+        (K, U) Eq. 3 divergence matrix (or None) and ``state`` holding only
+        the *global* entries (the round taps client rows itself). The key
+        set is the same every round, and nothing may read a value on the
+        host (the engine enqueues a block of rounds without a sync).
+
+        Default: per-unit selection counts, per-unit divergence mean and
+        max, and each global state entry: the tensor itself when it is a
+        single leaf of at most :attr:`tap_passthrough_max` elements and at
+        most one dimension (FedLAMA's (U,) interval/ttl vectors; the state
+        seam replaces global entries each round, never in place), else its
+        f32 norm. The size test reads static shapes only.
+        """
+        taps = {"sel_count": selection.sum(0)}
+        if divs is not None:
+            taps["div_mean"] = divs.mean(0)
+            taps["div_max"] = divs.amax(0)
+        if state and state.get("global"):
+            for name, entry in state["global"].items():
+                leaves = tree_leaves(entry)
+                if len(leaves) == 1 and leaves[0].ndim <= 1 and \
+                        leaves[0].numel() <= self.tap_passthrough_max:
+                    taps[f"state_{name}"] = leaves[0]
+                else:
+                    taps[f"state_{name}_norm"] = torch.sqrt(sq_sum(leaves))
+        return taps
 
 
 # ======================================================================

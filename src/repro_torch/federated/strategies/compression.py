@@ -27,8 +27,11 @@ Two execution paths, chosen by ``CompressionConfig.fused``:
   the inner strategy aggregates — the A/B reference the packed path is
   held to.
 
-The reference's mesh half (``uplink_psum_parts``, ``psum_parts``) and its
-telemetry taps wait for their slices (ROADMAP Queue 1, items 8 and 11).
+Telemetry taps delegate to the inner strategy; the round taps the EF
+residual norms through the client-state rows and the packed wire bytes
+through the round's wire accounting. The reference's mesh half
+(``uplink_psum_parts``, ``psum_parts``) waits for the mesh slice (ROADMAP
+Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -107,6 +110,12 @@ class QuantizedUpload(FLStrategy):
     # ---- delegated hooks ----
     def select(self, divs, uniform, k, u, n, device):
         return self.inner.select(divs, uniform, k, u, n, device)
+
+    def telemetry_taps(self, state, selection, divs, umap):
+        # a custom inner tap hook survives composition; the round taps the
+        # wrapper's EF residual norms through the client-state rows and the
+        # packed wire bytes through the round's wire accounting
+        return self.inner.telemetry_taps(state, selection, divs, umap)
 
     def aggregate(self, uploads, umap, selection, data_sizes, global_params):
         return self.inner.aggregate(uploads, umap, selection, data_sizes,

@@ -12,7 +12,9 @@ against a per-expert loop with choices dropped and no host sync,
 deepseek-moe-16b's attention shapes, a small moe model's serving and its
 ``vmap(grad)`` of ``lm_loss`` against the CPU), and the enc-dec kinds
 (seamless-m4t-large-v2's attention shapes, a small enc-dec model's
-serving and its ``vmap(grad)`` of ``lm_loss`` against the CPU).
+serving and its ``vmap(grad)`` of ``lm_loss`` against the CPU), and round
+telemetry (a telemetry-on round and the engine's ledger against the CPU,
+a telemetry-on block without a host sync, ``device_memory_peak``).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -49,6 +51,9 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.telemetry import (TelemetryConfig, read_ledger,  # noqa: E402
+                                   split_runs)
+from repro_torch.telemetry.profiling import device_memory_peak  # noqa: E402
 from torch_moe_loop import moe_loop  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -736,6 +741,102 @@ def test_cuda_resume_is_bit_identical(cuda, case, driver):
                                     if "client" in l4.final_state
                                     else l4.final_state["global"])):
             assert torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# round telemetry on the card
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("case", ["fedldf_vmap", "int8_ef", "fedlama"])
+def test_cuda_telemetry_round_matches_cpu(cuda, case):
+    """One telemetry-on round on the card against the same round on the
+    CPU: the same tap keys, selection and comm; the taps within the
+    divergence kernel's tolerance (plus one int8 step's share for the EF
+    residual norm)."""
+    params, _ = _engine_task()
+    fl = dataclasses.replace(_engine_fl(case), telemetry=TelemetryConfig())
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.normal(size=(5, 8, 32, 32, 3)).astype(np.float32),
+             "labels": rng.integers(0, 10, size=(5, 8)).astype(np.int32)}
+    sizes = np.array([100.0, 150.0, 80.0, 120.0, 100.0], np.float32)
+    round_fn = build_round_fn(_loss, UnitMap.build(params), fl)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda l: l.to(dev), params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = make_strategy(fl).init_state(p, 5)
+        outs[str(dev)] = round_fn(p, b, torch.from_numpy(sizes).to(dev),
+                                  state)[1]
+    m_c, m_g = outs["cpu"], outs["cuda"]
+    assert torch.equal(m_g["selection"].cpu(), m_c["selection"])
+    assert sorted(m_g["taps"]) == sorted(m_c["taps"])
+    for name, c in m_c["taps"].items():
+        g = m_g["taps"][name]
+        assert g.is_cuda
+        rtol = 1e-2 if name == "state_residual_norm" else TOL["rtol"]
+        torch.testing.assert_close(g.cpu(), c, rtol=rtol, atol=TOL["atol"])
+    for name, c in m_c["comm"].items():
+        assert float(m_g["comm"][name]) == pytest.approx(float(c))
+
+
+@pytest.mark.parametrize("case", ["fedldf_vmap", "int8_ef", "fedlama"])
+def test_cuda_telemetry_block_does_not_sync(cuda, case):
+    """A telemetry-on 2-round block enqueues without a host sync, and its
+    losses, comm, taps and selection come back in one copy."""
+    params, data = _engine_task()
+    fl = dataclasses.replace(_engine_fl(case), telemetry=TelemetryConfig())
+    p = tree_map(lambda l: l.to(cuda), params)
+    shards = ClientShards.from_federated(data).to(cuda)
+    host_sizes, all_sizes = shards.part_sizes.cpu(), shards.data_sizes()
+    run_block = fl_server._build_block_fn(_loss, UnitMap.build(p), fl)
+
+    def carry():
+        return (p, make_strategy(fl).init_state(p, fl.num_clients),
+                comm_acc_init(cuda))
+
+    draws = KeyedDraws(0)
+    run_block(carry(), shards, all_sizes, host_sizes, draws, 0, 2)  # warm
+    c0 = carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, per = run_block(c0, shards, all_sizes, host_sizes, draws, 0, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host, copies = fl_server._pull(per)
+    assert copies == 1
+    assert host["selection"].shape == (2, 5, 5)
+    assert all(t.shape[0] == 2 and bool(torch.isfinite(t).all())
+               for t in tree_leaves(host))
+
+
+def test_cuda_engine_ledger_matches_cpu(cuda, tmp_path):
+    """The engine's ledger on the card against the CPU's: the same keys,
+    comm and selection, taps within the divergence kernel's tolerance, and
+    a peak device memory on the card."""
+    params, data = _engine_task()
+    recs = {}
+    for dev in ("cpu", cuda):
+        lp = str(tmp_path / f"{dev}.jsonl")
+        fl = dataclasses.replace(_engine_fl("fedldf_vmap"),
+                                 telemetry=TelemetryConfig(ledger_path=lp))
+        run_training_scan(params, _loss, data, fl, rounds=3, seed=3,
+                          device=dev, eval_fn=lambda p: 0.5, eval_every=2)
+        recs[str(dev)] = split_runs(read_ledger(lp))[0]["rounds"]
+    for c, g in zip(recs["cpu"], recs["cuda"]):
+        assert sorted(c) == sorted(g) and c["round"] == g["round"]
+        assert c["comm"] == g["comm"] and c["selection"] == g["selection"]
+        for name in c["taps"]:
+            np.testing.assert_allclose(g["taps"][name], c["taps"][name],
+                                       **TOL)
+        assert c["mem_peak_bytes"] is None
+        assert 0 < g["mem_peak_bytes"] <= torch.cuda.max_memory_allocated()
+
+
+def test_cuda_device_memory_peak(cuda):
+    x = torch.ones(1 << 20, device=cuda)
+    peak = device_memory_peak(cuda)
+    assert isinstance(peak, int) and peak >= x.numel() * 4
+    assert peak == torch.cuda.max_memory_allocated(cuda)
 
 
 # tests/test_flash_kernel.py CASES: (bh, bkv, sq, skv, hd, causal, window)
