@@ -171,7 +171,31 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    host enqueue, device busy and idle share, off and on, the taps' own
    device time and ledger bytes a round; then ``python -m
    repro_torch.launch.train --task cifar --paper-scale --rounds 2`` once,
-   whose comm summary must give the exact bytes of 2 fedldf rounds.
+   whose comm summary must give the exact bytes of 2 fedldf rounds;
+18. the client mesh (``FLConfig(mesh=make_client_mesh())``, one process
+   a rank, started with ``repro_torch.launch.mesh.spawn``; a rank that
+   raises fails the run) at the paper's setup on phase 11's 50,000
+   images, 3 rounds a run: (a) 4 gloo ranks sharing the card, the flat
+   reduce, held to the unsharded engine on the same keyed draws (2e-5
+   params, 1e-5 losses); (b) the two-tier reduce (2 groups of 2) within
+   2e-5 of (a), the ledger's ``agg`` header and tier bytes (intra, cross,
+   busiest host 37,677,648 B; flat 0, 56,516,472, 113,032,944); (c)
+   setting A, held to the unsharded A within 2e-5 plus one int8 step, the
+   N-row EF store bit for bit on every rank; (d) ``shard_samples`` on 2
+   ranks: every round's batch and the trajectory bit for bit the
+   replicated placement's, about half the dataset's bytes a rank; (e) the
+   host driver and telemetry on equal the engine bit for bit, the
+   monitor's tier line; (f) a NCCL world of every visible card, within
+   2e-5 of unsharded, a 2-round block without a host sync. Every run: the
+   exact uplink bytes, every rank's params bit for bit, and a round a rank
+   1 fused ``all_reduce`` (or the two tiers' group reduce and ring
+   shift), 1 divergence all-gather (setting A: and 1 of the EF rows), 1
+   ``sqdiff_rowsum`` and in A 1 ``fused_uplink_ef``; then the round
+   wall-clock (median of 3) of the D=4 gloo world and the NCCL world, the
+   gloo staging copies, bytes and ms a round, each rank's kernel time
+   under ``torch.profiler`` and the card's idle share from ``nvidia-smi``'s
+   utilization (ranks sharing the card time-slice it, so their profiles
+   overlap; the one-rank NCCL world also gives it from its profile).
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -190,7 +214,7 @@ prefill's own calls.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Phases 4-8 cut the data set to 10,000
 training images (200 per client instead of the paper's 1,000) to keep
-set-up short; phases 11-12 and 17 use the paper's 50,000. Weights are
+set-up short; phases 11-12, 17 and 18 use the paper's 50,000. Weights are
 random, drawn from a fixed seed.
 """
 import ast
@@ -310,6 +334,494 @@ def fail(msg):
 
 def say(msg):
     print(msg, flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 18: the client mesh (module level: the spawned ranks import this
+# file as their main module, whose main() does not run there)
+# ----------------------------------------------------------------------
+MESH_ROUNDS = 3             # rounds a run in the worlds of phase 18
+MESH_WORLD = 4              # gloo ranks sharing the card: (a), (b), (c), (e)
+SHARD_WORLD = 2             # (d): N/D = 25 clients a rank
+MESH_GROUP = 2              # (b): 2 groups of 2
+TIMED_ROUNDS = 3            # 1-round blocks timed, after one warm-up
+UTIL_LAG_S = 0.25           # utilization samples this soon after the start
+                            # of the timed rounds still cover the wait
+# (b)'s and (a)'s tier bytes at P = 4 · 4,709,706 B (the reference's
+# agg_tier_bytes): intra, cross, busiest host
+TIER_BYTES = {MESH_GROUP: (37_677_648.0,) * 3,
+              0: (0.0, 56_516_472.0, 113_032_944.0)}
+
+
+def _mesh_rank(rank, task):
+    """One rank of a phase-18 world: the runs of ``task["plan"]`` through
+    the drivers on this rank's card, each run's params (rank 0 returns
+    them whole; every rank a digest), losses, uplink, EF store digest,
+    kernel launches and mesh counters, and the timed rounds."""
+    import datetime
+    import hashlib
+    import statistics
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.configs import vgg9_cifar10 as vgg9
+    from repro_torch.core.comm import comm_acc_init
+    from repro_torch.core.units import UnitMap, tree_leaves
+    from repro_torch.data import ClientShards, FederatedData
+    from repro_torch.federated import (CompressionConfig, KeyedDraws,
+                                       make_strategy, run_training,
+                                       run_training_scan)
+    from repro_torch.federated import server as fl_server
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_client_mesh
+    from repro_torch.models.cnn import classify_loss
+    from repro_torch.telemetry import TelemetryConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_client_mesh()
+    dev = mesh.device
+    cfg = vgg9.config()
+    params = params_from_numpy(task["params"], dev)
+    umap = UnitMap.build(params)
+    data = FederatedData(np.load(task["xs"], mmap_mode="c"),
+                         np.load(task["ys"], mmap_mode="c"), task["parts"])
+    host_shards = ClientShards.from_federated(data)
+    shards = host_shards.place(mesh)           # the whole set on the card
+
+    def loss_fn(p, batch):
+        return classify_loss(p, cfg, batch)
+
+    def config(name):
+        kw = {"mesh": mesh}
+        if name in ("b", "b_tele"):
+            kw["agg_group_size"] = MESH_GROUP
+        if name == "shard":
+            kw["shard_samples"] = True
+        if name.endswith("_tele"):
+            kw["telemetry"] = TelemetryConfig(ledger_path=task["ledger"],
+                                              run_id=name)
+        comp = (CompressionConfig(bits=8, error_feedback=True)
+                if name == "c" else None)
+        return dataclasses.replace(vgg9.fl_config(compression=comp), **kw)
+
+    def digest(tree):
+        h = hashlib.sha1()
+        for leaf in tree_leaves(tree):
+            h.update(leaf.detach().cpu().contiguous().view(-1)
+                     .view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()
+
+    out = {"rank": rank, "size": mesh.size, "backend": mesh.backend,
+           "stage": mesh.stage, "device": str(dev), "runs": {}}
+    for name in task["plan"]:
+        fl = config(name)
+        if name == "rep":          # the affinity layout, placed whole
+            fldata = host_shards.with_affinity(mesh.size).place(mesh)
+        elif name == "shard":      # this rank's block only
+            fldata = host_shards
+        else:
+            fldata = shards
+        # the params after every round (rank 0), for the per-round check:
+        # an eval block a round leaves the trajectory as it is
+        seen = []
+        kw = {}
+        if name in task.get("per_round", ()):
+            kw = {"eval_every": 1, "eval_fn": lambda p_: seen.append(
+                params_to_numpy(p_) if rank == 0 else None) or 0.0}
+        ops.reset_launch_counts()
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if name == "host":
+            p, log = run_training(params, loss_fn, fldata, fl,
+                                  rounds=MESH_ROUNDS, seed=SEED,
+                                  sampler="device", device=dev)
+        else:
+            p, log = run_training_scan(params, loss_fn, fldata, fl,
+                                       rounds=MESH_ROUNDS, seed=SEED,
+                                       device=dev, **kw)
+        torch.cuda.synchronize()
+        run = {"wall": time.perf_counter() - t, "losses": list(log.losses),
+               "uplink": log.meter.uplink_bytes, "digest": digest(p),
+               "launches": {k: v for k, v in ops.launch_counts().items()
+                            if v},
+               "counts": mesh.counts()}
+        if log.final_state is not None:
+            run["store"] = digest(log.final_state["client"])
+        if rank == 0:
+            run["params"] = params_to_numpy(p)
+            run["per_round"] = seen
+        out["runs"][name] = run
+        del p, log, fldata
+
+    if "shard" in task["plan"]:
+        # the same rounds' batches through both placements, and the bytes
+        rep = host_shards.with_affinity(mesh.size).place(mesh)
+        shd = host_shards.place(mesh, shard_samples=True)
+        out["bytes"] = (rep.bytes_per_device(), shd.bytes_per_device())
+        fl = config("shard")
+        kloc = fl.clients_per_round // mesh.size
+        rows = slice(rank * kloc, (rank + 1) * kloc)
+        sizes = rep.part_sizes.cpu()
+        same = True
+        for t in range(MESH_ROUNDS):
+            rd = KeyedDraws(SEED)(t)
+            c = rd.clients(fl.num_clients, fl.clients_per_round, mesh.size)
+            j = rd.indices(sizes[c], fl.batch_per_client)
+            c, j = c[rows].to(dev), j[rows].to(dev)
+            a, b = rep.gather(c, j), shd.gather(c, j)
+            same = same and all(torch.equal(a[k], b[k]) for k in a)
+        out["batches_equal"] = same
+        del rep, shd
+
+    if task.get("timed"):
+        fl = config("a")
+        block = fl_server._build_block_fn(loss_fn, umap, fl)
+        carry = (params, make_strategy(fl).init_state(
+            params, fl.num_clients, mesh), comm_acc_init(dev))
+        args = (shards, shards.data_sizes(), shards.part_sizes.cpu(),
+                KeyedDraws(SEED))
+        carry, per = block(carry, *args, 0, 1)          # warm-up
+        fl_server._pull(per)
+        # the card's utilization over the timed rounds, as nvidia-smi
+        # reads it: every process's kernels (a profile sees its own)
+        smi_util = None
+        if rank == 0:
+            smi_util = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=timestamp,utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, text=True)
+            time.sleep(1.0)
+        walls, staged = [], []
+        t_first = time.time()
+        for i in range(TIMED_ROUNDS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            mesh.reset_counts()
+            t = time.perf_counter()
+            carry, per = block(carry, *args, 1 + i, 1)
+            fl_server._pull(per)                  # the round's one sync
+            walls.append(time.perf_counter() - t)
+            staged.append(mesh.counts()["staged"])
+        t_last = time.time()
+        util = None
+        if smi_util is not None:
+            time.sleep(0.2)
+            smi_util.terminate()
+            util = []
+            for l_ in smi_util.communicate()[0].splitlines():
+                try:
+                    ts, u = l_.split(", ")
+                    at = datetime.datetime.strptime(
+                        ts, "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                    # a sample covers nvidia-smi's last period (about
+                    # 200 ms): the first ones still see the wait before
+                    if t_first + UTIL_LAG_S <= at <= t_last:
+                        util.append(float(u))
+                except ValueError:      # a line cut by the terminate
+                    continue
+        torch.cuda.synchronize()
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            carry, per = block(carry, *args, 1 + TIMED_ROUNDS, 1)
+            fl_server._pull(per)
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        out["timed"] = {"wall_ms": [w_ * 1e3 for w_ in walls],
+                        "median_ms": statistics.median(walls) * 1e3,
+                        "staged": staged, "busy_ms": busy / 1e3,
+                        "util": util}
+        if task.get("sync_check"):
+            # a 2-round block enqueued with any host sync an error
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                carry, per = block(carry, *args, 2 + TIMED_ROUNDS, 2)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out["synced_block"] = bool(torch.isfinite(
+                fl_server._pull(per)[0]["loss"]).all())
+        del carry, per
+    return out
+
+
+def phase18(ctx):
+    """The client mesh at the paper's setup (see the module docstring,
+    phase 18); ``ctx`` holds main()'s names it reads. Returns the FL
+    kernels' launches in the worlds' ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.core.comm import agg_tier_bytes
+    from repro_torch.core.units import tree_leaves
+    from repro_torch.data import ClientShards
+    from repro_torch.launch import monitor
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.federated import run_training_scan
+    from repro_torch.telemetry import read_ledger, split_runs
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    params0, data_e, umap = ctx["params0"], ctx["data_e"], ctx["umap"]
+    fl_v, fl_a, loss_fn = ctx["fl_v"], ctx["fl_a"], ctx["loss_fn"]
+    per_round_up = ctx["per_round_up"]
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()
+    say(f"[mesh] compute mode {mode}; {torch.cuda.device_count()} visible "
+        f"card(s); {smi}")
+    if any(m != "Default" for m in mode):
+        fail(f"mesh: the card's compute mode is {mode}; ranks sharing a card "
+             "need Default")
+    tdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    atexit.register(shutil.rmtree, tdir, True)
+    np.save(tdir / "xs.npy", data_e.xs)
+    np.save(tdir / "ys.npy", data_e.ys)
+    base = {"params": params_to_numpy(params0), "xs": str(tdir / "xs.npy"),
+            "ys": str(tdir / "ys.npy"), "parts": data_e.parts}
+
+    def world(size, backend, **task):
+        t = time.perf_counter()
+        ranks = spawn(_mesh_rank, size, ({**base, **task},),
+                      backend=backend, store_dir=str(tdir))
+        say(f"[mesh] a world of {size} {backend} rank(s) "
+            f"({ranks[0]['device']}, staging {ranks[0]['stage']}): "
+            f"{time.perf_counter() - t:.1f} s, start-up included")
+        return ranks
+
+    # the unsharded engine on the same keyed draws
+    shards = ClientShards.from_federated(data_e).to(dev)
+    ref = {}
+    for label, fl in (("v", fl_v), ("A", fl_a)):
+        p, log = run_training_scan(params0, loss_fn, shards, fl,
+                                   rounds=MESH_ROUNDS, seed=SEED, device=dev)
+        ref[label] = (params_to_numpy(p), log)
+        del p
+    launches = {}
+
+    def add_launches(ranks):
+        for r in ranks:
+            for run in r["runs"].values():
+                for n_, c in run["launches"].items():
+                    launches[n_] = launches.get(n_, 0) + c
+
+    def max_diff(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in
+                   zip(tree_leaves(a), tree_leaves(b)))
+
+    def held_per_round(label, run):
+        """Each round of a mesh run against the unsharded engine's round
+        from the same params and draws (2e-5 params, 1e-5 loss): the
+        mesh's own difference, the f32 order of its reduce. Its 3-round
+        trajectory against the unsharded one is printed, not held: the
+        paper's setup on random weights diverges (loss 3.4 -> 17.9 in
+        round 2), and that amplifies a round-1 difference of 1e-7 about
+        3,000 times by round 3, as the unsharded engine's own local
+        training in chunks of K/D does not differ at all."""
+        starts = [params_to_numpy(params0)] + run["per_round"][:-1]
+        worst_p = worst_l = 0.0
+        for t, (p_t, p_next) in enumerate(zip(starts, run["per_round"])):
+            p, log = run_training_scan(params_from_numpy(p_t, dev), loss_fn,
+                                       shards, fl_v, rounds=1, start_round=t,
+                                       seed=SEED, device=dev)
+            worst_p = max(worst_p, max_diff(params_to_numpy(p), p_next))
+            worst_l = max(worst_l, abs(log.losses[0] - run["losses"][t]))
+            del p
+        if max_diff(run["per_round"][-1], run["params"]) != 0.0:
+            fail(f"mesh {label}: the recorded last round is not the result")
+        traj = max_diff(run["params"], ref["v"][0])
+        traj_l = max(abs(x - y) for x, y in zip(run["losses"],
+                                                ref["v"][1].losses))
+        say(f"[mesh {label}] each round against the unsharded engine's "
+            f"round from the same params and draws: params max_abs_diff "
+            f"{worst_p:.3e} (limit {EQUIV_TOL}), loss {worst_l:.3e} (limit "
+            f"1e-05); the {MESH_ROUNDS}-round trajectory against the "
+            f"unsharded one (information only): params {traj:.3e}, losses "
+            f"{traj_l:.3e}, unsharded losses {ref['v'][1].losses}")
+        if worst_p > EQUIV_TOL or worst_l > 1e-5:
+            fail(f"mesh {label}: a round differs from the unsharded round")
+
+    def step_diff(a, b):
+        """Max over the units of |a − b| less one int8 step of the unit."""
+        worst = 0.0
+        for key in b:
+            step = max(float(np.abs(v).max()) for v in tree_leaves(b[key]))
+            worst = max(worst, max_diff(a[key], b[key]) - step / 127.0)
+        return worst
+
+    def check_ranks(label, ranks, name, want_up, want_calls, want_kernels):
+        runs = [r["runs"][name] for r in ranks]
+        r0 = runs[0]
+        if len({r_["digest"] for r_ in runs}) != 1 or \
+                any(r_["losses"] != r0["losses"] for r_ in runs):
+            fail(f"mesh {label}: the ranks' params or losses differ")
+        if len({r_.get("store") for r_ in runs}) != 1:
+            fail(f"mesh {label}: the ranks' EF residual stores differ")
+        if r0["uplink"] != MESH_ROUNDS * want_up:
+            fail(f"mesh {label}: uplink {r0['uplink']} B in {MESH_ROUNDS} "
+                 f"rounds, expected exactly {MESH_ROUNDS} x {want_up} B")
+        for i, r_ in enumerate(runs):
+            calls = {op: c / MESH_ROUNDS for op, (c, *_) in
+                     r_["counts"].items() if op != "staged" and c}
+            kern = {n_: c / MESH_ROUNDS for n_, c in r_["launches"].items()}
+            if calls != want_calls or kern != want_kernels:
+                fail(f"mesh {label} rank {i}: a round made {calls} and "
+                     f"launched {kern}, expected {want_calls} and "
+                     f"{want_kernels}")
+        staged = r0["counts"]["staged"]
+        say(f"[mesh {label}] {len(ranks)} ranks, {MESH_ROUNDS} rounds: "
+            f"{r0['wall']:.3f} s (rank 0, first-round warm-up included); "
+            f"losses {r0['losses']}; uplink {r0['uplink']:.0f} B, exact; "
+            f"ranks bit for bit equal (params"
+            + (", EF store" if "store" in r0 else "") + f"); a round a "
+            f"rank: {want_calls}, kernels {want_kernels}; staged {staged[0]}"
+            f" copies, {staged[1]} B, {staged[2] * 1e3:.1f} ms ({smi})")
+        return r0
+
+    # ---- (a), (b), (c), (e): 4 gloo ranks sharing the card -------------
+    ledger = str(tdir / "ledger.jsonl")
+    flat_calls = {"all_reduce_flat": 1, "all_gather_rows": 1}
+    g4 = world(MESH_WORLD, "gloo", ledger=ledger, timed=True,
+               plan=("a", "a_tele", "host", "b_tele", "c"),
+               per_round=("a", "b_tele"))
+    add_launches(g4)
+    sq1 = {"sqdiff_rowsum": 1.0}
+    a = check_ranks("a flat", g4, "a", per_round_up, flat_calls, sq1)
+    held_per_round("a flat", a)
+    for name, what in (("a_tele", "telemetry on"),
+                       ("host", "run_training(sampler='device')")):
+        check_ranks(f"e {what}", g4, name, per_round_up, flat_calls, sq1)
+        r_ = g4[0]["runs"][name]
+        if r_["digest"] != a["digest"] or r_["losses"] != a["losses"]:
+            fail(f"mesh e: {what} differs from the engine's flat run")
+    say("[mesh e] the host driver and telemetry on equal the engine's flat "
+        "D=4 run bit for bit")
+    b = check_ranks(f"b two-tier gs={MESH_GROUP}", g4, "b_tele",
+                    per_round_up, {"all_gather_rows": 1,
+                                   "group_all_reduce": 1, "ring_shift": 1},
+                    sq1)
+    held_per_round(f"b two-tier gs={MESH_GROUP}", b)
+    d_b = max_diff(b["per_round"][0], a["per_round"][0])
+    say(f"[mesh b] round 1 against (a)'s: params max_abs_diff {d_b:.3e} "
+        f"(limit {EQUIV_TOL}); after {MESH_ROUNDS} rounds (information "
+        f"only) {max_diff(b['params'], a['params']):.3e}")
+    if d_b > EQUIV_TOL:
+        fail("mesh b: the two-tier reduce differs from the flat one")
+    c = check_ranks("c setting A", g4, "c", ctx["want_uplink_a"],
+                    {"all_reduce_flat": 1, "all_gather_rows": 2},
+                    {"sqdiff_rowsum": 1.0, "fused_uplink_ef": 1.0})
+    d_c = step_diff(c["params"], ref["A"][0])
+    say(f"[mesh c] against the unsharded setting A: max over the units of "
+        f"params max_abs_diff less one int8 step {d_c:.3e} (limit "
+        f"{EQUIV_TOL})")
+    if d_c > EQUIV_TOL:
+        fail("mesh c: setting A on the mesh differs from the unsharded run")
+    # the ledger (rank 0 alone writes it) and the monitor
+    segs = {s_["meta"]["run_id"]: s_ for s_ in split_runs(
+        read_ledger(ledger))}
+    if sorted(segs) != ["a_tele", "b_tele"]:
+        fail(f"mesh: ledger segments {sorted(segs)}")
+    for name, gs in (("a_tele", 0), ("b_tele", MESH_GROUP)):
+        meta, recs = segs[name]["meta"], segs[name]["rounds"]
+        want_agg = ({"group_size": MESH_WORLD, "num_groups": 1, "tiers": 1}
+                    if not gs else {"group_size": gs, "num_groups":
+                                    MESH_WORLD // gs, "tiers": 2})
+        tiers = agg_tier_bytes(umap.total_bytes, MESH_WORLD, gs)
+        got = [(x["comm"]["agg_intra_bytes"], x["comm"]["agg_cross_bytes"],
+                x["comm"]["agg_cross_bytes_per_host"]) for x in recs]
+        if meta["agg"] != want_agg or meta["mesh"] != {
+                "clients": MESH_WORLD} or \
+                any(g_ != TIER_BYTES[gs] for g_ in got) or \
+                (tiers["agg_intra_bytes"], tiers["agg_cross_bytes"],
+                 tiers["agg_cross_bytes_per_host"]) != TIER_BYTES[gs] or \
+                any(x["comm"]["uplink_total"] != per_round_up
+                    for x in recs):
+            fail(f"mesh ledger {name}: agg {meta['agg']}, mesh "
+                 f"{meta['mesh']}, tier bytes {got}")
+        say(f"[mesh ledger {name}] header agg {meta['agg']} mesh "
+            f"{meta['mesh']}; every round intra / cross / busiest host "
+            f"{got[0]} B, uplink {recs[0]['comm']['uplink_total']:.0f} B")
+    buf = io.StringIO()
+    monitor.render(ledger, out=buf)
+    tier_lines = [l_ for l_ in buf.getvalue().splitlines()
+                  if "agg traffic/round" in l_ or "mesh=" in l_]
+    if not any("2-tier reduce" in l_ for l_ in tier_lines):
+        fail(f"mesh: the monitor printed no tier line:\n{buf.getvalue()}")
+    for l_ in tier_lines:
+        say(f"[monitor] {l_.strip()}")
+
+    # ---- (d) sample sharding, 2 gloo ranks ------------------------------
+    g2 = world(SHARD_WORLD, "gloo", plan=("rep", "shard"))
+    add_launches(g2)
+    rep = check_ranks("d replicated (affinity layout)", g2, "rep",
+                      per_round_up, flat_calls, sq1)
+    shd = check_ranks("d shard_samples", g2, "shard", per_round_up,
+                      flat_calls, sq1)
+    by = [r["bytes"] for r in g2]
+    if shd["digest"] != rep["digest"] or shd["losses"] != rep["losses"] or \
+            not all(r["batches_equal"] for r in g2) or \
+            any(s_ > r_ // 2 + 4 * 3072 * 30 for r_, s_ in by):
+        fail(f"mesh d: shard_samples against replicated: trajectory equal "
+             f"{shd['digest'] == rep['digest']}, batches equal "
+             f"{[r['batches_equal'] for r in g2]}, bytes a rank {by}")
+    say(f"[mesh d] shard_samples at D={SHARD_WORLD}: every round's batch "
+        f"and the trajectory bit for bit the replicated placement's; "
+        f"dataset bytes a rank {[s_ for _, s_ in by]} against "
+        f"{by[0][0]} replicated ({smi})")
+
+    # ---- (f) a NCCL world of every visible card ------------------------
+    n_cards = torch.cuda.device_count()
+    gn = world(n_cards, "nccl", plan=("f",), timed=True, sync_check=True,
+               per_round=("f",))
+    add_launches(gn)
+    f = check_ranks("f nccl", gn, "f", per_round_up, flat_calls, sq1)
+    held_per_round("f nccl", f)
+    if gn[0]["backend"] != "nccl" or gn[0]["stage"] or \
+            not all(r["synced_block"] for r in gn):
+        fail(f"mesh f: backend {gn[0]['backend']}, staging "
+             f"{gn[0]['stage']}, blocks {[r['synced_block'] for r in gn]}")
+    say(f"[mesh f] NCCL world of {n_cards}: a 2-round block under "
+        f"set_sync_debug_mode('error'): 0 host syncs ({smi})")
+
+    # ---- times -----------------------------------------------------------
+    for label, ranks in (("D=4 gloo", g4), (f"D={n_cards} nccl", gn)):
+        tm = [r["timed"] for r in ranks]
+        wall = statistics.median(t_["median_ms"] for t_ in tm)
+        st = tm[0]["staged"]
+        util = tm[0]["util"] or [math.nan]
+        # one process: its profile is the card's busy time; several
+        # processes time-slice the card, and a kernel's profiled span then
+        # holds the other contexts' turns too, so only nvidia-smi's
+        # utilization gives the card's idle share
+        idle_own = 1 - tm[0]["busy_ms"] / wall
+        idle_smi = 1 - statistics.mean(util) / 100
+        own = (f"; idle share from the profile {idle_own:.4f}"
+               if len(tm) == 1 else "")
+        say(f"[times] mesh {label}: round wall-clock {wall:.3f} ms (the "
+            f"ranks' medians of {TIMED_ROUNDS} 1-round blocks: "
+            f"{[round(t_['median_ms'], 3) for t_ in tm]}; rank 0's rounds "
+            f"{[round(x, 3) for x in tm[0]['wall_ms']]}); each rank's "
+            f"kernel time a round under torch.profiler "
+            f"{[round(t_['busy_ms'], 3) for t_ in tm]} ms{own}; the card's "
+            f"utilization.gpu over the timed rounds (nvidia-smi every 100 "
+            f"ms, its period about 200 ms) {util} %, idle share "
+            f"{idle_smi:.4f}; gloo staging a round (rank 0): "
+            f"{statistics.median(s_[0] for s_ in st)} copies to the host, "
+            f"{statistics.median(s_[1] for s_ in st):.0f} B both ways, "
+            f"{statistics.median(s_[2] for s_ in st) * 1e3:.3f} ms ({smi})")
+    del shards
+    torch.cuda.empty_cache()
+    say(f"[mesh] phase 18: {time.perf_counter() - t18:.1f} s; launches in "
+        f"its ranks {launches}")
+    return launches
 
 
 def main():
@@ -3312,18 +3824,27 @@ def main():
             summary.get("uplink_MB") != 2 * per_round_up / 1e6:
         fail(f"launcher: comm summary {summary}")
     lap("launcher")
-    del shards, test_batch, data_e, train_e
+    del shards, test_batch
     torch.cuda.empty_cache()
     say(f"[telemetry] phase 17: {time.perf_counter() - t17:.1f} s; launches "
         f"on its path {counts_17}")
+
+    # ---- 18. the client mesh at the paper's setup -----------------------
+    counts_18 = phase18({"dev": dev, "smi": smi, "params0": params0,
+                         "data_e": data_e, "umap": umap, "fl_v": fl_v,
+                         "fl_a": fl_a, "loss_fn": loss_fn,
+                         "per_round_up": per_round_up,
+                         "want_uplink_a": WANT_UPLINK[8]})
+    del data_e, train_e
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/divergence.cu",
          "replaces": "src/repro/kernels/divergence.py:27",
-         "launches": sum(c["sqdiff_rowsum"]
+         "launches": sum(c.get("sqdiff_rowsum", 0)
                          for c in (counts_v, counts_s, counts_a, counts_b,
-                                   *lora_counts.values(), counts_17)),
+                                   *lora_counts.values(), counts_17,
+                                   counts_18)),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
          "plain_ms": sq_plain, "bound_ms": sq_bound_v, "bound_by": sq_by,
          "library_ms": None},
@@ -3348,7 +3869,8 @@ def main():
          "replaces": "src/repro/kernels/uplink.py:117",
          "launches": (counts_a["fused_uplink_ef"]
                       + lora_counts["A"]["fused_uplink_ef"]
-                      + counts_17.get("fused_uplink_ef", 0)),
+                      + counts_17.get("fused_uplink_ef", 0)
+                      + counts_18.get("fused_uplink_ef", 0)),
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},

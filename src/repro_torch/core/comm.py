@@ -8,8 +8,9 @@ selection matrix; :class:`CommMeter` keeps totals across rounds on the
 host. A compressed uplink reprices the payload through
 ``param_bytes_override`` (the legacy chain's uniform b/8 bytes a
 parameter) or ``unit_bytes_override`` (the packed wire format's per-unit
-bytes). The client-sharded ``axis_name`` waits for the mesh slice (ROADMAP
-Queue 1, item 11).
+bytes). On a client mesh :func:`round_comm` takes ``mesh=`` (the
+reference's ``axis_name``) and sums the ranks' local rows;
+:func:`agg_tier_bytes` splits the round's aggregation traffic by tier.
 """
 from __future__ import annotations
 
@@ -25,10 +26,16 @@ DIVERGENCE_SCALAR_BYTES = 4  # float32 feedback scalars
 def round_comm(selection: torch.Tensor, umap: UnitMap, *,
                divergence_feedback: bool = True,
                param_bytes_override: float | None = None,
-               unit_bytes_override: torch.Tensor | None = None) -> dict:
+               unit_bytes_override: torch.Tensor | None = None,
+               mesh=None) -> dict:
     """Per-round communication in bytes, as 0-d float32 tensors.
 
-    selection: (K, U) ∈ {0,1}. ``param_bytes_override`` reprices every
+    selection: (K, U) ∈ {0,1}. On a client mesh (``mesh``, a
+    :class:`~repro_torch.launch.mesh.ClientMesh`) pass this rank's local
+    rows: the float64 payload sum and the client count are summed over the
+    ranks, so every rank returns the same global totals. (The sharded
+    round itself prices the full replicated selection and needs no
+    collective for it.) ``param_bytes_override`` reprices every
     parameter uniformly (legacy quantized pricing, e.g. 1.0 for int8).
     ``unit_bytes_override`` — a (U,) per-unit byte vector, usually
     ``PackedPayload.unit_wire_bytes`` — takes precedence.
@@ -45,6 +52,8 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
     """
     k = selection.shape[0]
     dev = selection.device
+    if mesh is not None:
+        k *= mesh.size                  # global K across the mesh
     if unit_bytes_override is not None:
         unit_bytes = torch.as_tensor(unit_bytes_override,
                                      dtype=torch.float32, device=dev)
@@ -52,8 +61,10 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
         scale = (1.0 if param_bytes_override is None
                  else param_bytes_override / 4.0)
         unit_bytes = umap.unit_bytes_tensor(dev) * scale
-    payload = torch.sum(selection.double()
-                        * unit_bytes.double()[None, :]).float()
+    payload = torch.sum(selection.double() * unit_bytes.double()[None, :])
+    if mesh is not None:
+        payload = mesh.all_reduce_flat(payload.reshape(1))[0]
+    payload = payload.float()
     # constants are filled on the device (no host copy, no sync)
     feedback = torch.full(
         (), k * umap.num_units * DIVERGENCE_SCALAR_BYTES
@@ -70,6 +81,49 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
         "fedavg_uplink": fedavg_up,
         "savings_frac": 1.0 - uplink / fedavg_up,
     }
+
+
+def agg_tier_bytes(payload_bytes: float, axis_size: int,
+                   group_size: int = 0) -> dict:
+    """A round's aggregation traffic by tier for the flat or two-tier
+    cross-rank reduce (:func:`repro_torch.core.aggregation.
+    hierarchical_psum`), port of the reference's, values as Python floats.
+
+    ``payload_bytes`` is ONE rank's reduce payload P (its Eq. 5 numerator
+    tree). ``group_size`` 0 or ``axis_size`` is the flat reduce. Static per
+    configuration (topology × payload), added to the round's comm record
+    after the reduce:
+
+      agg_payload_bytes        — P
+      agg_intra_bytes          — bytes a round on intra-group links (0 for
+                                 the flat reduce)
+      agg_cross_bytes          — bytes a round across group boundaries
+                                 (flat: D−1 partials to the root; two-tier:
+                                 the leaders' ring moves G·(G−1) payloads)
+      agg_cross_bytes_per_host — the busiest participant's cross-tier
+                                 share, sent and received (flat 2·(D−1)·P;
+                                 two-tier 2·(G−1)·P)
+      agg_groups               — G
+      agg_tiers                — 1 (flat) or 2
+    """
+    d = int(axis_size)
+    gs = int(group_size) or d
+    if d % gs:
+        raise ValueError(f"agg_tier_bytes: group_size={gs} must divide "
+                         f"axis_size={d}")
+    p = float(payload_bytes)
+    num_groups = d // gs
+    if num_groups <= 1:
+        return {"agg_payload_bytes": p,
+                "agg_intra_bytes": 0.0,
+                "agg_cross_bytes": (d - 1) * p,
+                "agg_cross_bytes_per_host": 2.0 * (d - 1) * p,
+                "agg_groups": 1.0, "agg_tiers": 1.0}
+    return {"agg_payload_bytes": p,
+            "agg_intra_bytes": float(d - num_groups) * p,
+            "agg_cross_bytes": float(num_groups * (num_groups - 1)) * p,
+            "agg_cross_bytes_per_host": 2.0 * (num_groups - 1) * p,
+            "agg_groups": float(num_groups), "agg_tiers": 2.0}
 
 
 # ----------------------------------------------------------------------

@@ -6,8 +6,9 @@ weight: dense output columns, conv output channels); the server aggregates
 element-wise over the uploaded entries. This is the finer-granularity
 comparison point the paper contrasts with FedLDF's layer-granularity
 selection (paper §III, pruning ratio chosen for equal communication
-overhead). The mesh halves (``fedadp_psum_parts`` / ``_finalize``) wait
-for the mesh slice (ROADMAP Queue 1, item 11).
+overhead). On a client mesh the aggregation splits in two halves,
+:func:`fedadp_psum_parts` (a rank's masked partials, summed across ranks)
+and :func:`fedadp_psum_finalize` (the division on every rank).
 """
 from __future__ import annotations
 
@@ -73,6 +74,42 @@ def aggregate_fedadp(stacked_params: Pytree, global_params: Pytree,
         return agg.to(g.dtype)
 
     return tree_map(combine, stacked_params, masks, global_params)
+
+
+def fedadp_psum_parts(stacked_params: Pytree, global_params: Pytree,
+                      data_sizes: torch.Tensor,
+                      keep_frac: float) -> tuple[Pytree, Pytree]:
+    """A rank's halves of :func:`aggregate_fedadp` for the mesh round's
+    cross-rank sum: masked numerators ``Σ_k θ·m·w`` and element-wise
+    denominators ``Σ_k m·w`` over its K/D clients, both param-structured
+    f32 trees and additive across ranks, so summing them and dividing
+    (:func:`fedadp_psum_finalize`) gives the one-device aggregation up to
+    f32 summation order."""
+    masks = neuron_masks(stacked_params, global_params, keep_frac)
+    w = data_sizes.float()
+
+    def wx_for(theta):
+        return w.reshape((-1,) + (1,) * (theta.ndim - 1))
+
+    numer = tree_map(lambda theta, m: torch.sum(theta.float() * m
+                                                * wx_for(theta), dim=0),
+                     stacked_params, masks)
+    denom = tree_map(lambda theta, m: torch.sum(m * wx_for(theta), dim=0),
+                     stacked_params, masks)
+    return numer, denom
+
+
+def fedadp_psum_finalize(numer: Pytree, denom: Pytree,
+                         global_params: Pytree) -> Pytree:
+    """The epilogue on every rank: element-wise division, falling back to
+    the previous global value where no client uploaded an entry."""
+
+    def combine(n, d, g):
+        alive = d > 0
+        agg = torch.where(alive, n / torch.where(alive, d, 1.0), g.float())
+        return agg.to(g.dtype)
+
+    return tree_map(combine, numer, denom, global_params)
 
 
 def comm_bytes(global_params: Pytree, num_clients: int,

@@ -36,6 +36,15 @@ def tree_leaves(tree: Pytree) -> list[torch.Tensor]:
     return [tree]
 
 
+def tree_unflatten(tree: Pytree, leaves) -> Pytree:
+    """A nested dict shaped like ``tree`` whose leaves, in
+    :func:`tree_leaves` order, are taken from the iterator ``leaves``."""
+    if isinstance(tree, dict):
+        return {key: tree_unflatten(tree[key], leaves)
+                for key in sorted(tree)}
+    return next(leaves)
+
+
 def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
     """``t`` (a host tensor) on ``device`` without holding the host: a CUDA
     copy goes through pinned memory with ``non_blocking=True``, which

@@ -15,9 +15,17 @@ gather:
    the local draws ``j ~ U[0, |D_c|)`` per (client, sample):
    ``xs[part_idx[clients, j]]``.
 
-The reference's sample-axis sharding (``with_affinity``, ``place`` and the
-mesh branch of ``gather``) waits for the mesh slice (ROADMAP Queue 1, item
-11).
+On a client mesh (:class:`~repro_torch.launch.mesh.ClientMesh`, one rank a
+device) :meth:`ClientShards.place` puts the dataset on the rank's device,
+whole (every rank may need any sample) or, with ``shard_samples=True``,
+only the rank's block of a **sample-axis sharded** layout:
+:meth:`ClientShards.with_affinity` permutes the samples into contiguous
+per-group blocks keyed by a static client→group assignment (group ``g``
+owns clients ``[g·N/G, (g+1)·N/G)``), rank ``g`` keeps block ``g`` (about
+1/D of the dataset's bytes) and :meth:`ClientShards.gather` reads rank-local
+rows, ``row − g·group_block``. The cohort is then drawn per affinity group
+(:func:`repro_torch.federated.sampling.sample_clients_grouped`), so rank
+``g``'s K/D participant rows are clients whose samples it holds.
 """
 from __future__ import annotations
 
@@ -37,17 +45,32 @@ class ClientShards:
     part_sizes: torch.Tensor  # (N,) true shard sizes, int32
     x_key: str = "images"
     y_key: str = "labels"
+    # affinity layout (with_affinity): samples in num_groups contiguous
+    # blocks of group_block rows; 0 / 1 when the layout is the loader's
+    group_block: int = 0
+    num_groups: int = 1
+    # the global row of xs[0]: g·group_block when this rank holds only its
+    # block of a sample-sharded layout (place(..., shard_samples=True))
+    sample_base: int = 0
 
     @property
     def num_clients(self) -> int:
         return self.part_idx.shape[0]
+
+    @property
+    def is_block(self) -> bool:
+        """Whether these shards hold one rank's block of a sample-sharded
+        layout (:meth:`place` with ``shard_samples=True``)."""
+        return bool(self.group_block) and \
+            self.xs.shape[0] < self.num_groups * self.group_block
 
     def data_sizes(self) -> torch.Tensor:
         """|D_k| vector (float32) for the Eq. 5 weighting."""
         return self.part_sizes.float()
 
     def bytes_per_device(self) -> int:
-        """At-rest dataset bytes on the device (xs + ys)."""
+        """At-rest dataset bytes on the device (xs + ys; one rank's block
+        under sample sharding)."""
         return int(sum(a.numel() * a.element_size()
                        for a in (self.xs, self.ys)))
 
@@ -97,10 +120,93 @@ class ClientShards:
             x_key=fldata.x_key, y_key=fldata.y_key)
 
     # ------------------------------------------------------------------
+    def with_affinity(self, num_groups: int) -> "ClientShards":
+        """Re-layout the samples into contiguous per-group blocks.
+
+        Group ``g`` owns clients ``[g·N/G, (g+1)·N/G)``; its block holds
+        those clients' samples back to back, padded to the largest group's
+        sample total (``group_block``) with copies of row 0, which nothing
+        addresses. ``part_idx`` is rewritten into the new rows with the
+        same cyclic-pad rule, so :meth:`gather` returns the same batch
+        values for any ``(clients, j)``: the re-layout only moves data.
+        The index arithmetic runs on the host; the arrays stay on their
+        device. A layout of ``num_groups`` already is returned as is."""
+        n = self.num_clients
+        if num_groups <= 1:
+            return self
+        if self.num_groups == num_groups and self.group_block:
+            return self
+        if n % num_groups:
+            raise ValueError(
+                f"with_affinity: num_clients={n} must divide into "
+                f"{num_groups} groups")
+        if self.is_block:
+            raise ValueError("with_affinity: these shards hold one rank's "
+                             "block of a sample-sharded layout")
+        part_idx = self.part_idx.cpu().numpy()
+        sizes = self.part_sizes.cpu().numpy().astype(np.int64)
+        cpg = n // num_groups
+        blk = int(sizes.reshape(num_groups, cpg).sum(axis=1).max())
+        # destination of each client's first sample: its group's base plus
+        # the exclusive cumulative shard size within the group
+        csum = np.cumsum(sizes) - sizes
+        gstart = csum.reshape(num_groups, cpg)[:, 0]
+        dest0 = (np.repeat(np.arange(num_groups, dtype=np.int64) * blk, cpg)
+                 + (csum - np.repeat(gstart, cpg)))
+        cols = np.arange(part_idx.shape[1], dtype=np.int64)[None, :]
+        valid = cols < sizes[:, None]
+        order = np.zeros(num_groups * blk, dtype=np.int64)
+        order[(dest0[:, None] + cols)[valid]] = part_idx[valid]
+        new_idx = (dest0[:, None]
+                   + cols % np.maximum(sizes, 1)[:, None]).astype(np.int32)
+        take = torch.from_numpy(order).to(self.xs.device)
+        return dataclasses.replace(
+            self, xs=self.xs[take], ys=self.ys[take],
+            part_idx=torch.from_numpy(new_idx).to(self.part_idx.device),
+            group_block=blk, num_groups=num_groups)
+
+    def place(self, mesh, shard_samples: bool = False) -> "ClientShards":
+        """The shards on this rank of ``mesh`` (its device).
+
+        ``shard_samples=False``: the whole dataset on every rank: the
+        round's participants are any K of the N clients, so any rank may
+        need any sample, and every rank pays the whole dataset's memory.
+
+        ``shard_samples=True`` (a mesh of D > 1 ranks): the layout of
+        :meth:`with_affinity` (D groups; applied here if the shards are not
+        laid out so already) and only rank ``g``'s block of
+        ``group_block`` rows on its device, about 1/D of the bytes; the
+        (small) index matrices stay whole. :meth:`gather` then reads
+        rank-local rows and needs a per-group cohort (the drivers draw one
+        when ``num_groups > 1``)."""
+        from repro_torch.launch.mesh import client_mesh_size
+        d = client_mesh_size(mesh)
+        if not shard_samples or d <= 1:
+            return self.to(mesh.device)
+        src = self.with_affinity(d)
+        lo = mesh.rank * src.group_block
+        if src.is_block:                 # placed so before
+            if src.sample_base != lo:
+                raise ValueError(
+                    f"place: these shards hold the block at row "
+                    f"{src.sample_base}, not rank {mesh.rank}'s")
+            return src.to(mesh.device)
+        return dataclasses.replace(
+            src, xs=src.xs[lo:lo + src.group_block].to(mesh.device,
+                                                       copy=True),
+            ys=src.ys[lo:lo + src.group_block].to(mesh.device, copy=True),
+            part_idx=src.part_idx.to(mesh.device),
+            part_sizes=src.part_sizes.to(mesh.device), sample_base=lo)
+
+    # ------------------------------------------------------------------
     def gather(self, clients: torch.Tensor, j: torch.Tensor) -> dict:
         """Stacked (K, batch, ...) round batch: ``xs[part_idx[clients,
         j]]``, device index ops only. ``j`` is the (K, batch) local index
         draw of :func:`repro_torch.federated.sampling.sample_indices`
-        (uniform with replacement over each client's shard)."""
+        (uniform with replacement over each client's shard). Under sample
+        sharding the rows are rank-local, ``part_idx[clients, j] −
+        sample_base``: ``clients`` must be in this rank's group."""
         gidx = self.part_idx[clients[:, None], j]               # (K, batch)
+        if self.sample_base:
+            gidx = gidx - self.sample_base
         return {self.x_key: self.xs[gidx], self.y_key: self.ys[gidx]}

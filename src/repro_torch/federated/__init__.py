@@ -8,7 +8,8 @@ appear here.
 from repro_torch.core.partition import ParamPartition
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.client import make_local_update, plain_sgd_client
-from repro_torch.federated.sampling import (KeyedDraws, round_generators,
+from repro_torch.federated.sampling import (KeyedDraws, local_rows,
+                                            round_generators,
                                             sample_clients,
                                             sample_clients_torch)
 from repro_torch.federated.server import (FLConfig, TrainLog, build_round_fn,
@@ -25,7 +26,8 @@ from repro_torch.launch.sharding import init_residual_store
 from repro_torch.telemetry import TelemetryConfig
 
 __all__ = ["ALGOS", "CompressionConfig", "make_local_update",
-           "plain_sgd_client", "KeyedDraws", "round_generators",
+           "plain_sgd_client", "KeyedDraws", "local_rows",
+           "round_generators",
            "sample_clients", "sample_clients_torch", "FLConfig", "TrainLog",
            "build_round_fn", "build_round_scan", "build_round_vmap",
            "run_training", "run_training_scan", "FLStrategy",

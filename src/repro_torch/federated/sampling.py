@@ -100,6 +100,19 @@ def sample_indices(gen: torch.Generator, sizes: torch.Tensor,
     return raw % sizes.to(torch.int64)[:, None]
 
 
+def local_rows(arr, rank: int, shard_size: int):
+    """Rank ``rank``'s contiguous row block of a replicated, participant-
+    indexed array: rows ``[rank·K/D, (rank+1)·K/D)``, a view.
+
+    The client-sharded round keeps sampling replicated (every rank draws
+    the same K participants from the same keyed streams) and splits the
+    round by position, as the reference's ``P('clients')`` in-specs split
+    its stacked batch. ``arr`` is any (K, ...) tensor in participant order
+    (client ids, sample indices, the selection, divergence rows)."""
+    row0 = rank * shard_size
+    return arr[row0:row0 + shard_size]
+
+
 class RoundDraws:
     """One round's draws from the keyed streams: participants, sample
     indices and the algorithm stream's uniforms, all on the CPU. Successive

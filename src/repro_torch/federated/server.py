@@ -73,8 +73,24 @@ losses in the block's one pull. ``telemetry=None`` leaves every round,
 block and printed line as it is without telemetry; with it on, the
 trajectories are the same bit for bit (taps only read).
 
-Not yet ported (ROADMAP Queue 1): the JAX-key sampler and mesh sharding,
-with telemetry's mesh half (item 11).
+Both drivers scale past one device over a 1-D client mesh
+(``FLConfig(mesh=make_client_mesh(D))``, :mod:`repro_torch.launch.mesh`):
+one process (rank) a device, each running the same driver. Every rank
+draws the same participants and batch indices from the keyed streams,
+gathers and trains only its K/D rows, and the vmap round stitches the
+round back together with ``torch.distributed`` collectives: the (K/D, U)
+Eq. 3 blocks are all-gathered for the global top-n selection (the same on
+every rank), and the Eq. 5 numerators and denominator, the loss sum and
+the taps' client partials travel in ONE cross-rank sum over one flat f32
+buffer (flat, or two-tier with ``agg_group_size``), after which every rank
+divides, so every rank holds the same new model. The round's new EF rows
+are all-gathered and scattered into every rank's whole N-row store. Comm
+bytes come from the full selection, exactly as on one device.
+``shard_samples=True`` keeps only the rank's affinity block of the dataset
+on its device. Rank 0 alone writes the ledger, prints and profiles.
+
+Not yet ported (ROADMAP Queue 1): the JAX-key sampler (item 7), and the
+2-D ``('clients', 'model')`` mesh (item 11).
 """
 from __future__ import annotations
 
@@ -89,16 +105,19 @@ import torch
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.partition import ParamPartition, partition_counts
-from repro_torch.core.units import (UnitMap, host_to_device, tree_map,
-                                    tree_stack_index)
+from repro_torch.core.units import (UnitMap, host_to_device, tree_leaves,
+                                    tree_map, tree_stack_index,
+                                    tree_unflatten)
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.data.device import ClientShards
 from repro_torch.federated.client import make_local_update
-from repro_torch.federated.sampling import KeyedDraws, sample_clients
+from repro_torch.federated.sampling import (KeyedDraws, local_rows,
+                                            sample_clients)
 from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
                                               FedLPOptions, get_strategy_cls,
                                               make_strategy,
                                               registered_algos)
+from repro_torch.launch.mesh import client_mesh_size
 from repro_torch.optim.opt import Optimizer, sgd
 from repro_torch.telemetry import (ProgressSink, RoundLedger,
                                    TelemetryConfig)
@@ -169,6 +188,21 @@ class FLConfig:
     fedlama_lam: int = 2           # FedLAMA long-interval multiplier λ
     quantize_bits: int = 0         # quantized delta upload (0 = off)
     error_feedback: bool = False
+    # multi-device: split the round's K clients over this client mesh
+    # (repro_torch.launch.mesh.make_client_mesh; one rank a device). None
+    # = the one-device round.
+    mesh: Optional[Any] = None
+    # two-tier aggregation (mesh only): the round's one cross-rank sum
+    # becomes an all-reduce within blocks of agg_group_size consecutive
+    # ranks, then a ring across the blocks (core.aggregation.
+    # hierarchical_psum). 0 (default) keeps one flat all-reduce; 1 is a
+    # pure ring over all ranks.
+    agg_group_size: int = 0
+    # sample-axis sharding (mesh only): the drivers place ClientShards
+    # with shard_samples=True, each rank holding only its affinity block
+    # of the samples (about 1/D of the bytes), and draw the cohort per
+    # affinity group
+    shard_samples: bool = False
     # observability: metric taps + JSONL round ledger + profiling hooks
     # (see repro_torch.telemetry). None (default) is the zero-cost path:
     # rounds, blocks and fixed-seed trajectories are bit-identical to a
@@ -297,6 +331,43 @@ class FLConfig:
             raise TypeError(
                 "FLConfig.partition must be a repro_torch.core.partition."
                 f"ParamPartition or None, got {type(self.partition)}")
+        if self.mesh is not None:
+            # the reference asserts the first and third; same exception
+            if self.mode != "vmap":
+                raise AssertionError(
+                    "client-axis sharding needs stacked clients "
+                    "(mode='vmap')")
+            if not scls.supports_mesh:
+                raise ValueError(
+                    f"strategy {self.algo!r} declares supports_mesh=False "
+                    "(a declared capability — see "
+                    "repro_torch.federated.strategies)")
+            d = client_mesh_size(self.mesh)
+            if self.clients_per_round % d:
+                raise AssertionError(
+                    f"K={self.clients_per_round} must divide over {d} "
+                    "devices")
+            if self.agg_group_size:
+                gs = self.agg_group_size
+                if not (1 <= gs <= d and d % gs == 0):
+                    raise ValueError(
+                        f"FLConfig.agg_group_size={gs} must be in [1, {d}] "
+                        f"and divide the 'clients' axis size {d}")
+            if self.shard_samples and self.num_clients % d:
+                raise ValueError(
+                    f"FLConfig.shard_samples needs N={self.num_clients} "
+                    f"divisible by the {d} 'clients'-axis devices (the "
+                    "static client→device affinity assigns N/D clients "
+                    "per device)")
+        else:
+            if self.agg_group_size:
+                raise ValueError(
+                    "FLConfig.agg_group_size is a mesh-round knob; pass "
+                    "mesh=make_client_mesh(...) too")
+            if self.shard_samples:
+                raise ValueError(
+                    "FLConfig.shard_samples is a mesh-round knob; pass "
+                    "mesh=make_client_mesh(...) too")
         if self.telemetry is not None and \
                 not isinstance(self.telemetry, TelemetryConfig):
             raise TypeError(
@@ -331,10 +402,18 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     ``"residual"`` holds the participants' (K, ...) residual rows (see
     :func:`run_training`). With ``flcfg.partition``, ``params`` is the
     trainable sub-tree and ``frozen`` the frozen base, which every
-    client's local step closes over."""
+    client's local step closes over.
+
+    With ``flcfg.mesh`` the round is this rank's share of the client-
+    sharded round (:func:`_build_round_vmap_sharded`): ``batch``,
+    ``data_sizes`` and the state's client rows are the rank's K/D rows,
+    and every metric, and the state's client rows, come back for all K."""
     _full_fp32()
     local_update = _local_update(loss_fn, flcfg, opt)
     strategy = make_strategy(flcfg)
+    if flcfg.mesh is not None:
+        return _build_round_vmap_sharded(local_update, umap, flcfg,
+                                         strategy)
     k = flcfg.clients_per_round
     taps_on = _taps_on(flcfg)
 
@@ -350,14 +429,7 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
         selection = strategy.select_with_state(
             state, divs, uniform, k, umap.num_units, flcfg.top_n,
             data_sizes.device)
-        res_rows = None
-        if strategy.tracks_residuals:
-            if state is None:
-                raise ValueError(
-                    "error feedback needs the participants' residual rows: "
-                    "pass state=strategy.init_state(...) rows (run_training "
-                    "does)")
-            res_rows = state["client"]["residual"]
+        res_rows = _residual_rows(strategy, state)
 
         wire = None
         if strategy.packed_upload:
@@ -371,22 +443,8 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
             comm = strategy.comm_profile(
                 selection, umap, unit_bytes_override=wire["unit_bytes"])
         else:
-            uploads, new_rows = locals_, None
-            if strategy.transforms_upload:
-                # e.g. quantized deltas: the server reconstructs
-                # Ĝ + dequant(Q(Δ + e)) client by client; error-feedback
-                # residuals advance only where a layer was uploaded
-                outs = [strategy.transform_upload(
-                    tree_stack_index(locals_, i), params, umap,
-                    None if res_rows is None
-                    else tree_stack_index(res_rows, i)) for i in range(k)]
-                uploads = tree_map(lambda *ls: torch.stack(ls),
-                                   *(o[0] for o in outs))
-                if strategy.tracks_residuals:
-                    rows = [strategy.update_residual(
-                        outs[i][1], tree_stack_index(res_rows, i),
-                        selection[i], umap, params) for i in range(k)]
-                    new_rows = tree_map(lambda *ls: torch.stack(ls), *rows)
+            uploads, new_rows = _transform_uploads(
+                strategy, locals_, params, umap, res_rows, selection)
             new_params = strategy.aggregate(uploads, umap, selection,
                                             data_sizes, params)
             comm = strategy.comm_profile(selection, umap)
@@ -498,6 +556,167 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
     return round_fn
 
 
+def _residual_rows(strategy, state: Optional[dict]):
+    """The round's EF residual rows, when the strategy tracks them."""
+    if not strategy.tracks_residuals:
+        return None
+    if state is None:
+        raise ValueError(
+            "error feedback needs the participants' residual rows: pass "
+            "state=strategy.init_state(...) rows (run_training does)")
+    return state["client"]["residual"]
+
+
+def _transform_uploads(strategy, locals_: Pytree, params: Pytree,
+                       umap: UnitMap, res_rows, selection: torch.Tensor):
+    """``(uploads, new_res_rows)`` of the stacked ``locals_`` (the
+    selection's rows are theirs): the identity, or the upload transform
+    client by client (e.g. quantized deltas: the server reconstructs
+    Ĝ + dequant(Q(Δ + e))), with the error-feedback residuals advanced only
+    where a layer was uploaded."""
+    if not strategy.transforms_upload:
+        return locals_, None
+    k = selection.shape[0]
+    outs = [strategy.transform_upload(
+        tree_stack_index(locals_, i), params, umap,
+        None if res_rows is None else tree_stack_index(res_rows, i))
+        for i in range(k)]
+    uploads = tree_map(lambda *ls: torch.stack(ls), *(o[0] for o in outs))
+    new_rows = None
+    if strategy.tracks_residuals:
+        rows = [strategy.update_residual(
+            outs[i][1], tree_stack_index(res_rows, i), selection[i], umap,
+            params) for i in range(k)]
+        new_rows = tree_map(lambda *ls: torch.stack(ls), *rows)
+    return uploads, new_rows
+
+
+def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
+                              strategy):
+    """This rank's share of the client-sharded vmap round, port of the
+    reference's ``shard_map`` body: each of the mesh's D ranks trains its
+    K/D clients, and one ``torch.distributed`` call stands for each
+    collective of the reference's body:
+
+    - Eq. 3: the rank's (K/D, U) divergence block (one ``sqdiff_rowsum``
+      call) is all-gathered into the (K, U) matrix, so the top-n selection
+      (Eq. 4), which needs every client's divergences, is computed alike
+      on every rank (as are the random policies' draws: the algorithm
+      stream is the same on every rank); each rank keeps its own rows.
+    - Eq. 5, the loss sum and the taps' client partials travel in ONE
+      cross-rank sum of one flat f32 buffer: the additive halves of the
+      strategy's aggregation (``psum_parts``, or ``uplink_psum_parts``
+      through the fused uplink kernels over the rank's rows), then the
+      division on every rank (``psum_finalize``). ``agg_group_size``
+      makes it two-tier (:func:`~repro_torch.core.aggregation.
+      hierarchical_psum`).
+    - Comm bytes are priced from the full selection (and the packed
+      wire's per-unit bytes, alike on every rank), so they are exactly the
+      one-device round's; the aggregation tiers' bytes
+      (:func:`~repro_torch.core.comm.agg_tier_bytes`) are added after.
+    - State: global entries enter and leave replicated (the transition
+      runs on the same inputs on every rank); client entries enter as the
+      rank's rows, and the round's new rows are all-gathered (one
+      collective) so the drivers write the same K rows into every rank's
+      whole N-row store.
+    """
+    mesh = flcfg.mesh
+    d = client_mesh_size(mesh)
+    k = flcfg.clients_per_round
+    kloc = k // d
+    taps_on = _taps_on(flcfg)
+    gs = flcfg.agg_group_size
+    hier = bool(gs) and gs < d
+    if hier:
+        mesh.tier_group(gs)     # collective: every rank, before any round
+    tier_bytes = comm_mod.agg_tier_bytes(umap.total_bytes, d,
+                                         gs if hier else 0)
+
+    def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
+                 state: Optional[dict] = None, uniform=None,
+                 frozen: Optional[Pytree] = None):
+        locals_, losses = torch.func.vmap(
+            _with_frozen(local_update, frozen), in_dims=(None, 0))(
+                params, batch)
+        divs = None
+        if strategy.needs_divergence:
+            divs = mesh.all_gather_rows(umap.divergence(locals_, params))
+        dev = data_sizes.device
+        selection = strategy.select_with_state(
+            state, divs, uniform, k, umap.num_units, flcfg.top_n, dev)
+        sel_loc = local_rows(selection, mesh.rank, kloc)
+        res_rows = _residual_rows(strategy, state)
+
+        wire = None
+        if strategy.packed_upload:
+            parts, denom_loc, new_rows, wire = strategy.uplink_psum_parts(
+                locals_, params, umap, sel_loc, divs, data_sizes, res_rows)
+            comm = strategy.comm_profile(
+                selection, umap, unit_bytes_override=wire["unit_bytes"])
+        else:
+            uploads, new_rows = _transform_uploads(
+                strategy, locals_, params, umap, res_rows, sel_loc)
+            parts, denom_loc = strategy.psum_parts(
+                uploads, umap, sel_loc, data_sizes, global_params=params)
+            comm = strategy.comm_profile(selection, umap)
+        if strategy.tracks_residuals:
+            state = {**state, "client": {**state["client"],
+                                         "residual": new_rows}}
+        # the taps' client-state partials (the rank's rows) ride the same
+        # sum: taps add no collective
+        client_sq = {}
+        if taps_on and state is not None and state.get("client"):
+            client_sq = taps_mod.client_sqsums(state["client"])
+        sums = agg.mesh_psum({"parts": parts, "denom": denom_loc,
+                              "loss": losses.sum(), "client_sq": client_sq},
+                             mesh, gs if hier else 0)
+        new_params = strategy.psum_finalize(sums["parts"], sums["denom"],
+                                            umap, params, params)
+        for name, v in tier_bytes.items():
+            comm[name] = torch.full((), v, dtype=torch.float32, device=dev)
+        metrics = {"loss": sums["loss"] / k, "comm": comm,
+                   "selection": selection, "divergence": divs,
+                   "wire": wire}
+        if state is not None:
+            state = strategy.update_state(state, selection, divs, umap,
+                                          uniform=uniform)
+            metrics["state"] = _gather_client_rows(
+                state, strategy.state_specs(params, state, mesh), mesh)
+        if taps_on:
+            # the client norms from the summed partials ({} without
+            # client state), never from the gathered rows
+            metrics["taps"] = taps_mod.collect(
+                strategy, metrics.get("state"), selection, divs, umap,
+                client_sq=sums["client_sq"],
+                extra=(None if wire is None else
+                       {"wire_unit_bytes": wire["unit_bytes"],
+                        "wire_bits": wire["bits"]}))
+        return new_params, metrics
+
+    return round_fn
+
+
+def _gather_client_rows(state: dict, specs: dict, mesh) -> dict:
+    """The state with every rank-split client entry's (K/D, ...) rows
+    all-gathered into the round's (K, ...) rows, in rank order: one
+    collective over one buffer of every such leaf, each leaf's dtype kept
+    (a cast to f32 and back is exact for f32, bf16 and f16)."""
+    names = [n_ for n_, spec in specs["client"].items() if spec is not None]
+    if not names:
+        return state
+    leaves = [l for n_ in names for l in tree_leaves(state["client"][n_])]
+    kloc = leaves[0].shape[0]
+    widths = [l[0].numel() for l in leaves]
+    buf = torch.cat([l.reshape(kloc, -1).float() for l in leaves], dim=1)
+    full = mesh.all_gather_rows(buf).split(widths, dim=1)
+    rows = iter(f.reshape((-1,) + tuple(l.shape[1:])).to(l.dtype)
+                for f, l in zip(full, leaves))
+    client = dict(state["client"])
+    for n_ in names:
+        client[n_] = tree_unflatten(state["client"][n_], rows)
+    return {**state, "client": client}
+
+
 def _taps_on(flcfg: FLConfig) -> bool:
     return flcfg.telemetry is not None and flcfg.telemetry.taps
 
@@ -588,25 +807,67 @@ def _initial_state(strategy, params: Pytree, flcfg: FLConfig,
     change a caller's tensors, e.g. a checkpoint still held), or the
     strategy's fresh ``init_state``."""
     if server_state is None:
-        return strategy.init_state(params, flcfg.num_clients)
+        return strategy.init_state(params, flcfg.num_clients, flcfg.mesh)
     return tree_map(lambda l: torch.as_tensor(l).to(device, copy=True),
                     server_state)
 
 
 def _step(round_fn, params: Pytree, state: Optional[dict], batch: dict,
           sizes: torch.Tensor, clients: torch.Tensor, rd, device,
-          frozen: Optional[Pytree] = None):
+          frozen: Optional[Pytree] = None, rows: slice = slice(None)):
     """One round of either driver: the participants' state rows in, the
-    round, the rows scattered back; ``rd`` gives the algorithm stream."""
+    round, the rows scattered back; ``rd`` gives the algorithm stream.
+    ``rows`` are this rank's rows of the K participants on a mesh (the
+    round takes those state rows and gives back all K)."""
     uniform = _round_uniform(rd, device)
     if state is None:
         params, metrics = round_fn(params, batch, sizes, uniform=uniform,
                                    frozen=frozen)
         return params, None, metrics
     params, metrics = round_fn(params, batch, sizes,
-                               _state_round_view(state, clients), uniform,
-                               frozen=frozen)
+                               _state_round_view(state, clients[rows]),
+                               uniform, frozen=frozen)
     return params, _state_scatter(state, metrics["state"], clients), metrics
+
+
+def _rank_rows(flcfg: FLConfig) -> slice:
+    """This rank's rows of a round's K participants: all of them off the
+    mesh, ``[r·K/D, (r+1)·K/D)`` on rank r of D."""
+    mesh = flcfg.mesh
+    if mesh is None:
+        return slice(None)
+    kloc = flcfg.clients_per_round // client_mesh_size(mesh)
+    return slice(mesh.rank * kloc, (mesh.rank + 1) * kloc)
+
+
+def _check_rank_clients(flcfg: FLConfig, clients: torch.Tensor,
+                        rows: slice) -> None:
+    """Under sample sharding a rank holds its affinity group's samples
+    only: refuse a cohort (``clients``, on the host, (..., K)) whose rows
+    for this rank lie outside its group (a ``draws`` not drawn per group)."""
+    mesh = flcfg.mesh
+    if not flcfg.shard_samples or client_mesh_size(mesh) <= 1:
+        return
+    cpg = flcfg.num_clients // client_mesh_size(mesh)
+    if not bool((clients[..., rows] // cpg == mesh.rank).all()):
+        raise ValueError(
+            f"shard_samples: rank {mesh.rank}'s participants "
+            f"{clients[..., rows].tolist()} are not all in its affinity "
+            f"group [{mesh.rank * cpg}, {(mesh.rank + 1) * cpg}); draw the "
+            "cohort per group (RoundDraws.clients(N, K, num_groups))")
+
+
+def _device_of(device, flcfg: FLConfig) -> torch.device:
+    """The device a run is on: ``device``, or on a mesh the mesh's (this
+    rank's card), which must be of ``device``'s type."""
+    device = torch.device(device)
+    mesh = flcfg.mesh
+    if mesh is None:
+        return device
+    if device.type != mesh.device.type:
+        raise ValueError(f"device={device} but the mesh runs on "
+                         f"{mesh.device}; pass device={mesh.device.type!r}")
+    return mesh.device
 
 
 def _round_uniform(rd, device) -> Callable:
@@ -639,11 +900,18 @@ def _run_meta(flcfg: FLConfig, *, driver: str, umap: UnitMap, seed: int,
     layer-unit names index every per-layer tap vector; under a partition
     they are the trainable units). ``sampler`` is the port's own
     (``"host"`` or ``"device"``; the engine's streams are ``"device"``).
-    ``agg`` and ``mesh`` stay None and ``shard_samples`` False until the
-    mesh slice (ROADMAP Queue 1, item 11)."""
+    On a mesh ``agg`` gives the reduce's tiers and ``mesh`` its shape."""
     comp = flcfg.compression
+    mesh = flcfg.mesh
+    agg_meta = None
+    if mesh is not None:
+        d = client_mesh_size(mesh)
+        gs = flcfg.agg_group_size if (
+            flcfg.agg_group_size and flcfg.agg_group_size < d) else d
+        agg_meta = {"group_size": int(gs), "num_groups": int(d // gs),
+                    "tiers": 1 if gs == d else 2}
     return {"run_id": run_id, "driver": driver, "algo": flcfg.algo,
-            "agg": None, "shard_samples": False,
+            "agg": agg_meta, "shard_samples": bool(flcfg.shard_samples),
             "partition": partition_info,
             "mode": flcfg.mode, "sampler": sampler, "seed": seed,
             "start_round": start_round, "rounds": rounds,
@@ -655,7 +923,7 @@ def _run_meta(flcfg: FLConfig, *, driver: str, umap: UnitMap, seed: int,
                             {"bits": comp.bits,
                              "error_feedback": comp.error_feedback,
                              "fused": comp.fused}),
-            "mesh": None,
+            "mesh": (dict(mesh.shape) if mesh is not None else None),
             "units": list(umap.names),
             "unit_bytes": [float(b) for b in umap.unit_bytes]}
 
@@ -663,20 +931,29 @@ def _run_meta(flcfg: FLConfig, *, driver: str, umap: UnitMap, seed: int,
 def _telemetry(flcfg: FLConfig, verbose: bool, device, **meta):
     """The driver's ``(sink, profile window, ledger or None, sample
     system?)`` from ``flcfg.telemetry``; ``meta`` goes to
-    :func:`_run_meta` for the ledger's run header."""
+    :func:`_run_meta` for the ledger's run header. On a mesh only rank 0
+    writes the ledger, prints and profiles (every rank holds the same
+    model, losses and comm)."""
     tele = flcfg.telemetry
+    sample_sys = tele is not None and tele.sample_system
+    if flcfg.mesh is not None and flcfg.mesh.rank != 0:
+        tele, verbose = None, False
     sink = ProgressSink.for_run(tele, verbose)
     win = prof_mod.ProfileWindow.from_config(tele, device)
     ledger = None
     if tele is not None and tele.wants_ledger:
         ledger = RoundLedger(tele.ledger_path, meta=_run_meta(
             flcfg, run_id=tele.run_id, **meta))
-    return sink, win, ledger, tele is not None and tele.sample_system
+    return sink, win, ledger, sample_sys
 
 
-def _device_shards(fldata, device) -> ClientShards:
+def _device_shards(fldata, device, flcfg: FLConfig) -> ClientShards:
+    """The dataset on the run's device; on a mesh placed for this rank
+    (:meth:`ClientShards.place`, with ``flcfg.shard_samples``)."""
     shards = (fldata if isinstance(fldata, ClientShards)
               else ClientShards.from_federated(fldata))
+    if flcfg.mesh is not None:
+        return shards.place(flcfg.mesh, shard_samples=flcfg.shard_samples)
     return shards.to(device)
 
 
@@ -723,6 +1000,12 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     scored, uploaded and carried in the strategy state; ``eval_fn`` sees
     and the driver returns the full model, whose frozen leaves are the
     given tensors (on ``device``), untouched.
+
+    With ``flcfg.mesh`` every rank of the mesh calls this with the same
+    arguments and runs on the mesh's device (of ``device``'s type): both
+    samplers draw the whole cohort on every rank and each rank gathers its
+    K/D rows; ``flcfg.shard_samples`` needs ``sampler="device"``. Every
+    rank returns the same model and log.
     """
     if sampler == "jax":
         raise NotImplementedError(
@@ -733,7 +1016,7 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     if sampler not in ("host", "device"):
         raise ValueError(f"sampler must be 'host' or 'device', got "
                          f"{sampler!r}")
-    device = torch.device(device)
+    device = _device_of(device, flcfg)
     params, frozen, merged, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
@@ -744,10 +1027,15 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     draws = draws if draws is not None else KeyedDraws(seed)
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
+    rows = _rank_rows(flcfg)
     if sampler == "device":
-        shards = _device_shards(fldata, device)
+        shards = _device_shards(fldata, device, flcfg)
         host_sizes = shards.part_sizes.cpu()
         all_sizes = shards.data_sizes()
+    elif flcfg.shard_samples:
+        raise ValueError(
+            "FLConfig.shard_samples needs sampler='device' (the host sampler "
+            "never builds device-resident ClientShards)")
     else:
         rng = np.random.default_rng(seed)
         host_all_sizes = fldata.data_sizes()
@@ -763,20 +1051,25 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
             wall0 = time.perf_counter() if sample_sys else None
             rd = draws(t)
             if sampler == "device":
-                clients = rd.clients(n_, k_).to(torch.int64)
+                clients = rd.clients(n_, k_,
+                                     shards.num_groups).to(torch.int64)
+                _check_rank_clients(flcfg, clients, rows)
                 j = rd.indices(host_sizes[clients], b_)
                 idx = host_to_device(clients, device)
-                batch = shards.gather(idx, host_to_device(j, device))
-                sizes = all_sizes[idx]
+                batch = shards.gather(idx[rows],
+                                      host_to_device(j[rows], device))
+                sizes = all_sizes[idx[rows]]
             else:
                 clients = sample_clients(rng, n_, k_)
                 batch = fldata.round_batch(clients, b_, rng)
-                batch = {name: torch.from_numpy(v).to(device)
+                batch = {name: torch.from_numpy(v[rows]).to(device)
                          for name, v in batch.items()}
-                sizes = torch.from_numpy(host_all_sizes[clients]).to(device)
+                sizes = torch.from_numpy(
+                    host_all_sizes[clients][rows]).to(device)
                 idx = torch.from_numpy(clients).to(device)
             params, state, metrics = _step(round_fn, params, state, batch,
-                                           sizes, idx, rd, device, frozen)
+                                           sizes, idx, rd, device, frozen,
+                                           rows)
             log.meter.update(metrics["comm"])
             log.rounds.append(t)
             loss_t = float(metrics["loss"])     # device sync
@@ -883,6 +1176,7 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
     tele = flcfg.telemetry
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
+    rows = _rank_rows(flcfg)
 
     def run_block(carry, shards: ClientShards, all_sizes: torch.Tensor,
                   host_sizes: torch.Tensor, draws, t0: int, num: int,
@@ -890,10 +1184,13 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
         params, state, acc = carry
         device = all_sizes.device
         rds = [draws(t) for t in range(t0, t0 + num)]
-        clients = torch.stack([rd.clients(n_, k_).to(torch.int64)
-                               for rd in rds])                  # (num, K)
+        clients = torch.stack([rd.clients(n_, k_, shards.num_groups)
+                               .to(torch.int64) for rd in rds])  # (num, K)
+        _check_rank_clients(flcfg, clients, rows)
+        # every rank draws all K clients' indices (one stream) and copies
+        # its own rows' (num, K/D, B)
         j = torch.stack([rd.indices(host_sizes[c], b_).to(torch.int64)
-                         for rd, c in zip(rds, clients)])       # (num, K, B)
+                         for rd, c in zip(rds, clients)])[:, rows]
         # one copy of the whole block's draws
         drawn = host_to_device(torch.cat([clients.reshape(-1),
                                           j.reshape(-1)]), device)
@@ -905,8 +1202,8 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
         for i, rd in enumerate(rds):
             idx = clients_d[i]
             params, state, metrics = _step(
-                round_fn, params, state, shards.gather(idx, j_d[i]),
-                all_sizes[idx], idx, rd, device, frozen)
+                round_fn, params, state, shards.gather(idx[rows], j_d[i]),
+                all_sizes[idx[rows]], idx, rd, device, frozen, rows)
             acc = comm_mod.comm_acc_update(acc, metrics["comm"])
             losses[i] = metrics["loss"]
             uplink[i] = acc["uplink_bytes"]
@@ -951,13 +1248,14 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     bit-identically to one that never stopped. ``server_state`` is copied
     once at entry; the caller's tensors are not written.
 
-    ``flcfg.partition`` is handled as in :func:`run_training`.
+    ``flcfg.partition`` and ``flcfg.mesh`` are handled as in
+    :func:`run_training`.
     """
-    device = torch.device(device)
+    device = _device_of(device, flcfg)
     params, frozen, merged, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
-    shards = _device_shards(fldata, device)
+    shards = _device_shards(fldata, device, flcfg)
     run_block = _build_block_fn(loss_fn, umap, flcfg)
     prof_mod.note_engine_cache("block", hit=False)
     strategy = make_strategy(flcfg)

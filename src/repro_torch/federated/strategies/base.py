@@ -20,8 +20,13 @@ federated round behind a fixed set of hooks, so the round builders in
   the per-round state transition (identity by default).
 - ``aggregate(uploads, umap, selection, data_sizes, global_params)`` — the
   server-side reduction over client-stacked uploads; the default is Eq. 5.
-- ``psum_finalize(parts, denom, umap, params, fallback)`` — the epilogue
-  of Eq. 5 over additive numerators (the packed uplink's).
+- ``psum_parts(uploads, umap, sel_loc, data_sizes, global_params=None)``
+  / ``psum_finalize(parts, denom, umap, params, fallback)`` — the two
+  halves of :meth:`aggregate` that the mesh round folds into its one
+  cross-rank sum: additive partials over a rank's K/D clients, then the
+  epilogue on every rank (also the packed uplink's epilogue). The defaults
+  are Eq. 5; a strategy that overrides :meth:`aggregate` either overrides
+  these to match or declares ``supports_mesh = False``.
 - ``transform_upload(local, global_params, umap, residual) -> (upload,
   candidate_residual)`` — per-client payload transform (identity by
   default; the legacy compression chain quantizes here). Only consulted
@@ -32,18 +37,28 @@ federated round behind a fixed set of hooks, so the round builders in
 - ``uplink_round(locals_, global_params, umap, selection, divs,
   data_sizes, res_rows) -> (new_params, new_res_rows, wire)`` — the packed
   uplink: stacked locals become a packed wire payload reduced through the
-  fused uplink kernels. Only consulted when :attr:`packed_upload` is set.
+  fused uplink kernels; ``uplink_psum_parts`` is its mesh half (additive
+  partials of the rank's rows for the round's one cross-rank sum). Only
+  consulted when :attr:`packed_upload` is set.
 - ``comm_profile(selection, umap, param_bytes_override=None,
   unit_bytes_override=None) -> dict`` — per-round communication; the
   overrides reprice a compressed payload.
 
-Cross-round state: ``init_state(params, num_clients) -> state | None``
-declares it once before round 0 (``None``, the default, is stateless). A
-stateful strategy returns ``{"client": {name: store}, "global": {name:
-tree}}``; each client store's leaves carry a leading ``(num_clients,)``
-axis, and run_training hands the round the participants' rows only. The
-error-feedback residual store is the client entry ``"residual"`` that the
-quantize wrapper declares.
+Cross-round state: ``init_state(params, num_clients, mesh=None) -> state |
+None`` declares it once before round 0 (``None``, the default, is
+stateless). A stateful strategy returns ``{"client": {name: store},
+"global": {name: tree}}``; each client store's leaves carry a leading
+``(num_clients,)`` axis, and the drivers hand the round the participants'
+rows only. The error-feedback residual store is the client entry
+``"residual"`` that the quantize wrapper declares. On a 1-D client mesh
+every rank holds the whole N-row store (the reference's replicated store):
+the round gets the rank's K/D rows, and the drivers write the round's K
+new rows, all-gathered, into every rank's store. ``state_specs`` says
+which entries are split by rank in a round (client rows) and which are
+replicated (global entries). In the mesh round, global entries and the
+all-gathered divergences may drive selection on every rank alike; client
+rows are the rank's own, so ``select_with_state`` and ``update_state``
+touch them only row by row.
 
 Per-strategy knobs: a strategy declares an :attr:`options_cls` dataclass;
 ``FLConfig(algo_options=...)`` carries an instance, resolved by
@@ -53,6 +68,8 @@ Capability flags read by ``FLConfig`` and the engines:
 
 - ``needs_divergence`` — the engine computes the Eq. 3 divergence matrix
   (and accounts its feedback uplink) before calling ``select``.
+- ``supports_mesh`` — the strategy can run client-sharded over a
+  :class:`~repro_torch.launch.mesh.ClientMesh` (``FLConfig(mesh=...)``).
 - ``supports_scan`` — the strategy can run under ``mode="scan"``:
   streamed through the Eq. 5 accumulator when ``eq5_weighted``, else with
   the sequentially trained locals stacked for :meth:`aggregate`.
@@ -66,10 +83,6 @@ Capability flags read by ``FLConfig`` and the engines:
 Telemetry: ``telemetry_taps(state, selection, divs, umap) -> dict`` gives
 the round's per-layer summaries for ``FLConfig(telemetry=...)`` (see
 :meth:`FLStrategy.telemetry_taps`).
-
-The reference's mesh hooks (``supports_mesh``, ``psum_parts``,
-``uplink_psum_parts``, ``state_specs``) wait for the mesh slice (ROADMAP
-Queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -80,9 +93,11 @@ import torch
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
 from repro_torch.core.units import UnitMap, tree_leaves
+from repro_torch.launch.mesh import CLIENT_AXIS
 from repro_torch.telemetry.taps import sq_sum
 
 Pytree = Any
+
 
 class FLStrategy:
     """Base strategy: Eq. 5 aggregation over a subclass-chosen selection."""
@@ -95,6 +110,7 @@ class FLStrategy:
     # ---- capability flags (see module docstring) ----
     needs_divergence: bool = False
     supports_scan: bool = True
+    supports_mesh: bool = True
     supports_quantize: bool = True
     eq5_weighted: bool = True
     # ---- engine dispatch flags ----
@@ -123,9 +139,22 @@ class FLStrategy:
                 f"{cls.options_cls.__name__}, got {type(opts).__name__}")
         return opts
 
-    def init_state(self, params: Pytree, num_clients: int) -> Optional[dict]:
-        """Declare cross-round state; ``None`` (default) is stateless."""
+    def init_state(self, params: Pytree, num_clients: int,
+                   mesh=None) -> Optional[dict]:
+        """Declare cross-round state; ``None`` (default) is stateless. On
+        a 1-D ``mesh`` every rank holds the whole state, as without one."""
         return None
+
+    def state_specs(self, params: Pytree, state: dict, mesh) -> dict:
+        """Placement of the state's entries in a mesh round, in the 1-D
+        form: a dict of the state's shape whose value for each entry is
+        ``CLIENT_AXIS`` (its rows are split by rank in the round and
+        all-gathered after it: every client entry) or ``None`` (replicated:
+        every global entry). The reference's 2-D form (PartitionSpecs of
+        the trailing dims over a 'model' axis) comes with the model axis."""
+        return {kind: {name: CLIENT_AXIS if kind == "client" else None
+                       for name in (state.get(kind) or {})}
+                for kind in ("client", "global")}
 
     def select_with_state(self, state: Optional[dict],
                           divs: Optional[torch.Tensor], uniform, k: int,
@@ -161,6 +190,18 @@ class FLStrategy:
         return agg.aggregate_stacked(uploads, umap, selection, data_sizes,
                                      fallback=global_params)
 
+    # ---- mesh halves of aggregate() (the round's one cross-rank sum) ----
+    def psum_parts(self, uploads: Pytree, umap: UnitMap,
+                   sel_loc: torch.Tensor, data_sizes: torch.Tensor,
+                   global_params: Optional[Pytree] = None
+                   ) -> tuple[Pytree, Pytree]:
+        """Additive partials of this rank's K/D clients: param-structured
+        f32 numerators and a denominator, the (U,) Eq. 5 weight sums or a
+        param-structured tree (FedADP's element-wise counts).
+        ``global_params`` is the global model, for strategies whose
+        partials depend on it (FedADP's masks)."""
+        return agg.stacked_psum_parts(uploads, umap, sel_loc, data_sizes)
+
     def psum_finalize(self, parts: Pytree, denom: torch.Tensor,
                       umap: UnitMap, params: Pytree,
                       fallback: Pytree | None) -> Pytree:
@@ -179,6 +220,22 @@ class FLStrategy:
         raise NotImplementedError(
             f"{type(self).__name__} sets packed_upload but does not "
             "implement uplink_round")
+
+    def uplink_psum_parts(self, locals_: Pytree, global_params: Pytree,
+                          umap: UnitMap, sel_loc: torch.Tensor,
+                          divs: Optional[torch.Tensor],
+                          data_sizes: torch.Tensor,
+                          res_rows: Optional[Pytree]
+                          ) -> tuple[Pytree, torch.Tensor,
+                                     Optional[Pytree], dict]:
+        """Mesh half of :meth:`uplink_round` over this rank's K/D rows:
+        ``(parts, denom, new_res_rows, wire)``, the additive Eq. 5
+        numerators and denominator for the round's cross-rank sum (then
+        :meth:`psum_finalize`), the rank's new residual rows and the wire
+        accounting."""
+        raise NotImplementedError(
+            f"{type(self).__name__} sets packed_upload but does not "
+            "implement uplink_psum_parts")
 
     def comm_profile(self, selection: torch.Tensor, umap: UnitMap,
                      param_bytes_override: float | None = None,

@@ -111,6 +111,18 @@ class FedADP(FLStrategy):
         return fedadp_mod.aggregate_fedadp(uploads, global_params,
                                            data_sizes, self.opts.keep)
 
+    # ---- mesh halves: per-leaf additive masked partials ----
+    def psum_parts(self, uploads, umap, sel_loc, data_sizes,
+                   global_params=None):
+        if global_params is None:
+            raise ValueError("fedadp psum_parts needs the global model for "
+                             "its masks")
+        return fedadp_mod.fedadp_psum_parts(uploads, global_params,
+                                            data_sizes, self.opts.keep)
+
+    def psum_finalize(self, parts, denom, umap, params, fallback):
+        return fedadp_mod.fedadp_psum_finalize(parts, denom, fallback)
+
     def comm_profile(self, selection, umap, param_bytes_override=None,
                      unit_bytes_override=None):
         comm = comm_mod.round_comm(selection, umap,

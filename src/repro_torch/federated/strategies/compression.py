@@ -29,9 +29,10 @@ Two execution paths, chosen by ``CompressionConfig.fused``:
 
 Telemetry taps delegate to the inner strategy; the round taps the EF
 residual norms through the client-state rows and the packed wire bytes
-through the round's wire accounting. The reference's mesh half
-(``uplink_psum_parts``, ``psum_parts``) waits for the mesh slice (ROADMAP
-Queue 1, item 11).
+through the round's wire accounting. On a client mesh
+:meth:`QuantizedUpload.uplink_psum_parts` runs the same packed reduction
+(kernels 3 and 4, one launch a round) over the rank's K/D rows and returns
+its additive partials for the round's one cross-rank sum.
 """
 from __future__ import annotations
 
@@ -42,19 +43,11 @@ import torch
 from repro_torch.core import aggregation as agg
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.compress import compress_upload
-from repro_torch.core.units import tree_leaves, tree_map
+from repro_torch.core.units import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.wire import CompressionConfig
 from repro_torch.federated.strategies.base import FLStrategy
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.sharding import init_residual_store
-
-
-def _unflatten(tree, leaves):
-    """A tree shaped like ``tree`` whose leaves, in ``tree_leaves`` order
-    (sorted keys), are taken from the iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {key: _unflatten(tree[key], leaves) for key in sorted(tree)}
-    return next(leaves)
 
 
 class QuantizedUpload(FLStrategy):
@@ -80,18 +73,20 @@ class QuantizedUpload(FLStrategy):
         # mirror the inner strategy's declared behaviour (instance attrs
         # shadow the class-level flags)
         self.needs_divergence = inner.needs_divergence or comp.is_auto
+        self.supports_mesh = inner.supports_mesh
         self.eq5_weighted = inner.eq5_weighted
         self.tracks_residuals = comp.error_feedback
         self.packed_upload = comp.fused
         self.transforms_upload = not comp.fused
 
     # ---- cross-round state: inner state + the EF residual store ----
-    def init_state(self, params, num_clients):
-        state = self.inner.init_state(params, num_clients)
+    def init_state(self, params, num_clients, mesh=None):
+        state = self.inner.init_state(params, num_clients, mesh)
         if self.tracks_residuals:
             state = dict(state or {})
             client = dict(state.get("client") or {})
-            client["residual"] = init_residual_store(params, num_clients)
+            client["residual"] = init_residual_store(params, num_clients,
+                                                     mesh)
             state["client"] = client
         return state
 
@@ -120,6 +115,11 @@ class QuantizedUpload(FLStrategy):
     def aggregate(self, uploads, umap, selection, data_sizes, global_params):
         return self.inner.aggregate(uploads, umap, selection, data_sizes,
                                     global_params)
+
+    def psum_parts(self, uploads, umap, sel_loc, data_sizes,
+                   global_params=None):
+        return self.inner.psum_parts(uploads, umap, sel_loc, data_sizes,
+                                     global_params=global_params)
 
     def psum_finalize(self, parts, denom, umap, params, fallback):
         return self.inner.psum_finalize(parts, denom, umap, params, fallback)
@@ -221,9 +221,10 @@ class QuantizedUpload(FLStrategy):
                 nums.append(finish(num2, g_leaf, d_seg, n))
                 if ef:
                     ress.append(res2.reshape((k,) + g_leaf.shape))
-            num_parts[key] = _unflatten(global_params[key], iter(nums))
+            num_parts[key] = tree_unflatten(global_params[key], iter(nums))
             if ef:
-                res_parts[key] = _unflatten(global_params[key], iter(ress))
+                res_parts[key] = tree_unflatten(global_params[key],
+                                                iter(ress))
 
         wire = {"unit_bytes": payload.unit_wire_bytes(umap), "bits": bits,
                 "nbytes": payload.nbytes, "payload": payload}
@@ -242,6 +243,14 @@ class QuantizedUpload(FLStrategy):
         new_params = self.psum_finalize(parts, denom, umap, global_params,
                                         global_params)
         return new_params, new_rows, wire
+
+    def uplink_psum_parts(self, locals_, global_params, umap, sel_loc, divs,
+                          data_sizes, res_rows):
+        # the rank's K/D rows through the same kernels; divs is the full
+        # (K, U) matrix, so bits="auto" allocates the same widths on
+        # every rank
+        return self._packed_reduce(locals_, global_params, umap, sel_loc,
+                                   divs, data_sizes, res_rows)
 
     # ==================================================================
     # Legacy unfused chain (CompressionConfig.fused=False)

@@ -60,7 +60,7 @@ class FedLAMA(FLStrategy):
     options_cls = FedLAMAOptions
     needs_divergence = True   # d_u comes from the round's Eq. 3 matrix
 
-    def init_state(self, params, num_clients):
+    def init_state(self, params, num_clients, mesh=None):
         u = UnitMap.build(params).num_units
         dev = tree_leaves(params)[0].device
         return {"global": {

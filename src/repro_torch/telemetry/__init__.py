@@ -4,9 +4,11 @@ the progress sink and profiling through ``torch.profiler``.
 The ledger's schema is the reference's (``LEDGER_SCHEMA = 1``), so a ledger
 written by either package reads and renders the same in both. The round
 builders import :mod:`repro_torch.telemetry.taps` and the drivers
-:mod:`repro_torch.telemetry.profiling` directly. The mesh half (client
-partials reduced across a mesh, the aggregation tiers) waits for the
-mesh slice (ROADMAP Queue 1, item 11).
+:mod:`repro_torch.telemetry.profiling` directly. On a client mesh the
+taps' client-row partials ride the round's one cross-rank sum
+(``taps.collect(client_sq=)``), the comm record carries the aggregation
+tiers' bytes (``agg_*``), the run header the mesh, its tiers and the
+sample sharding, and rank 0 alone writes the ledger, prints and profiles.
 """
 from repro_torch.telemetry.config import TelemetryConfig, VERBOSITY_MODES
 from repro_torch.telemetry.ledger import (

@@ -82,7 +82,7 @@ class ProfileWindow:
     """
 
     def __init__(self, rounds: Optional[tuple[int, int]], trace_dir: str,
-                 device="cpu"):
+                 device="cuda"):
         self.lo, self.hi = rounds if rounds is not None else (None, None)
         self.trace_dir = trace_dir
         self.device = torch.device(device)
@@ -92,7 +92,7 @@ class ProfileWindow:
         self._warned = False
 
     @classmethod
-    def from_config(cls, telemetry, device="cpu") -> "ProfileWindow":
+    def from_config(cls, telemetry, device="cuda") -> "ProfileWindow":
         if telemetry is None:
             return cls(None, "", device)
         return cls(telemetry.profile_rounds, telemetry.profile_dir, device)

@@ -8,7 +8,9 @@ here add what only the round can see:
 
 - :func:`client_sqsums` — sums of squares over the round's *client* state
   rows (e.g. the participants' error-feedback residuals), in f32 over
-  every leaf of the K rows;
+  every leaf of the K rows. In the mesh round the rows are the rank's
+  K/D, so the round takes these partials locally and sums them across
+  ranks inside its one cross-rank sum (no second collective, no sync);
 - :func:`collect` — the round's tap dict: the strategy hook on the
   selection, divergence and global state, plus ``state_<name>_norm``
   entries from the client rows, plus the round's own extras (the packed
@@ -49,21 +51,24 @@ def client_sqsums(client: dict) -> dict:
 
 def collect(strategy, state: Optional[dict], selection: torch.Tensor,
             divs: Optional[torch.Tensor], umap,
+            client_sq: Optional[dict] = None,
             extra: Optional[dict] = None) -> dict:
     """One round's tap dict (see module docstring).
 
     ``state`` is the round-local post-``update_state`` view (client rows
-    included). ``extra`` merges round-side taps no hook can see, e.g. the
-    packed uplink's per-unit wire bytes and bit widths; its keys, like
-    every tap's, are the same every round. The reference's ``client_sq``
-    argument (client partials already reduced across a mesh) waits for
-    the mesh slice."""
+    included off the mesh). ``client_sq`` carries client partials already
+    summed across the mesh's ranks (the mesh round); ``None`` means take
+    them here from ``state['client']``. ``extra`` merges round-side taps
+    no hook can see, e.g. the packed uplink's per-unit wire bytes and bit
+    widths; its keys, like every tap's, are the same every round."""
     gview = None
     if state and state.get("global"):
         gview = {"global": state["global"]}
     taps = dict(strategy.telemetry_taps(gview, selection, divs, umap))
-    if state and state.get("client"):
-        for name, sq in client_sqsums(state["client"]).items():
+    if client_sq is None and state and state.get("client"):
+        client_sq = client_sqsums(state["client"])
+    if client_sq:
+        for name, sq in client_sq.items():
             taps[f"state_{name}_norm"] = torch.sqrt(sq)
     if extra:
         taps.update(extra)

@@ -14,7 +14,10 @@ deepseek-moe-16b's attention shapes, a small moe model's serving and its
 (seamless-m4t-large-v2's attention shapes, a small enc-dec model's
 serving and its ``vmap(grad)`` of ``lm_loss`` against the CPU), and round
 telemetry (a telemetry-on round and the engine's ledger against the CPU,
-a telemetry-on block without a host sync, ``device_memory_peak``).
+a telemetry-on block without a host sync, ``device_memory_peak``), and
+the client mesh (a world of 2 gloo ranks on the card: its collectives
+staged through pinned host memory, and the engine on the mesh against
+the engine on one device).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1590,3 +1593,81 @@ def test_cuda_encdec_vmap_grad_matches_cpu(cuda, no_tf32, remat):
     attentions = cfg.encoder_layers + 2 * cfg.num_layers
     assert ops.launch_counts()["flash_attention"] == \
         attentions * (2 if remat else 1)
+
+
+# ----------------------------------------------------------------------
+# the client mesh: a world of 2 gloo ranks on the card
+# ----------------------------------------------------------------------
+def test_cuda_mesh_gloo_world_stages_and_matches_one_device(cuda, tmp_path):
+    """Two gloo ranks (sharing a card where there is one): the four
+    collectives on CUDA tensors through the pinned staging buffer, then
+    fedldf and setting A on the mesh against the engine on one device,
+    every rank's bits equal, and 1 ``sqdiff_rowsum`` (and in A 1
+    ``fused_uplink_ef``) a rank a round. fedldf's every round is held to
+    the one-device round from the same params (2e-5: the reduce's f32
+    order, which a diverging trajectory amplifies from round to round);
+    A's two rounds to the one-device run within 2e-5 plus one int8
+    step."""
+    import torch_mesh_worker as w
+    from repro_torch.bridge import params_from_numpy, params_to_numpy
+    from repro_torch.launch.mesh import spawn
+    train, _ = make_image_dataset(num_train=320, num_test=16, seed=2)
+    parts = iid_partition(train.ys, w.N, seed=0)
+    params = cnn.init_params(w.CFG, torch.Generator().manual_seed(0), "cpu")
+    task = {"params": params_to_numpy(params), "xs": train.xs,
+            "ys": train.ys, "parts": parts}
+    ranks = spawn(w.card_world, 2, (task,), backend="gloo",
+                  store_dir=str(tmp_path))
+    x = [np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * r
+         for r in range(2)]
+    for r, res in enumerate(ranks):
+        assert (res["backend"], res["stage"]) == ("gloo", True)
+        assert res["device"].startswith("cuda")
+        np.testing.assert_array_equal(res["gather"], np.concatenate(x))
+        np.testing.assert_array_equal(res["reduce"], x[0] + x[1])
+        np.testing.assert_array_equal(res["group"], x[0] + x[1])
+        np.testing.assert_array_equal(res["shift"], x[1 - r])
+        np.testing.assert_allclose(res["psum"], res["psum_want"],
+                                   atol=1e-6)
+        ops_, bytes_, secs = res["counts"]["staged"]
+        assert ops_ >= 5 and bytes_ > 0 and secs > 0
+    data = FederatedData(train.xs, train.ys, parts)
+    for name, comp in (("flat", None), ("A", w.SETTING_A)):
+        p1, log1 = run_training_scan(params, w.loss_fn, data,
+                                     w.fl_config(compression=comp),
+                                     rounds=2, seed=0, device="cuda")
+        one = params_to_numpy(p1)
+        for res in ranks:
+            run = res[name]
+            assert run["losses"] == ranks[0][name]["losses"]
+            for a, b in zip(tree_leaves(run["params"]),
+                            tree_leaves(ranks[0][name]["params"])):
+                np.testing.assert_array_equal(a, b)
+            assert run["uplink"] == log1.meter.uplink_bytes
+            if comp is None:
+                starts = [params_to_numpy(params)] + run["per_round"][:-1]
+                for t, (p_t, p_next) in enumerate(zip(starts,
+                                                      run["per_round"])):
+                    pt, lt = run_training_scan(
+                        params_from_numpy(p_t, "cuda"), w.loss_fn, data,
+                        w.fl_config(), rounds=1, start_round=t, seed=0,
+                        device="cuda")
+                    assert abs(run["losses"][t] - lt.losses[0]) <= 1e-5
+                    for a, b in zip(tree_leaves(p_next),
+                                    tree_leaves(params_to_numpy(pt))):
+                        np.testing.assert_allclose(a, b, atol=EQUIV_TOL,
+                                                   rtol=0)
+            else:
+                np.testing.assert_allclose(run["losses"], log1.losses,
+                                           atol=1e-5, rtol=0)
+                for key in one:
+                    step = max(float(np.abs(v).max())
+                               for v in tree_leaves(one[key])) / 127.0
+                    for a, b in zip(tree_leaves(run["params"][key]),
+                                    tree_leaves(one[key])):
+                        np.testing.assert_allclose(
+                            a, b, atol=EQUIV_TOL + step, rtol=0)
+            want = {"sqdiff_rowsum": 2}
+            if comp is not None:
+                want["fused_uplink_ef"] = 2
+            assert run["launches"] == want

@@ -28,3 +28,23 @@ def test_port_has_files():
 def test_port_file_imports_no_jax_and_no_reference(path):
     roots = set(_imported_roots(ast.parse(path.read_text(), str(path))))
     assert not roots & set(FORBIDDEN), f"{path} imports {roots & set(FORBIDDEN)}"
+
+
+def test_mesh_module_is_covered_and_starts_nothing_on_import():
+    """``launch/mesh.py`` is among the files checked above, and importing
+    it joins no process group and starts no process (the tests' workers
+    and the spawned ranks import it)."""
+    import multiprocessing
+    import os
+    import subprocess
+    import sys
+    assert ROOT / "src" / "repro_torch" / "launch" / "mesh.py" in FILES
+    code = ("import multiprocessing, torch.distributed as dist; "
+            "import repro_torch.launch.mesh; "
+            "assert not dist.is_initialized(); "
+            "assert not multiprocessing.active_children()")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env={**os.environ,
+                                       "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr
+    assert not multiprocessing.active_children()

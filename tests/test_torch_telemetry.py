@@ -636,6 +636,25 @@ def test_profile_window_decisions_match_reference(window, blocks):
         _window_events(jprof.ProfileWindow, window, blocks)
 
 
+def test_profile_window_defaults_to_the_card_and_traces_the_cpu(tmp_path):
+    """The window's device defaults to ``cuda`` like every entry point; a
+    window given ``device="cpu"`` records the host's ops and writes its
+    trace of the rounds it covers."""
+    assert tprof.ProfileWindow((0, 0), str(tmp_path)).device.type == "cuda"
+    assert tprof.ProfileWindow.from_config(
+        TelemetryConfig()).device.type == "cuda"
+    win = tprof.ProfileWindow((1, 1), str(tmp_path), device="cpu")
+    for t in range(3):
+        win.round_begin(t)
+        torch.ones(64).cumsum(0).sum()
+        win.round_end(t)
+    win.close()
+    assert os.listdir(tmp_path) == ["rounds_1-1.json"]
+    with open(tmp_path / "rounds_1-1.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any("cumsum" in e.get("name", "") for e in events)
+
+
 def test_device_memory_peak_is_none_on_the_cpu():
     assert tprof.device_memory_peak("cpu") is None
 
