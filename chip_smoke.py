@@ -195,7 +195,23 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    gloo staging copies, bytes and ms a round, each rank's kernel time
    under ``torch.profiler`` and the card's idle share from ``nvidia-smi``'s
    utilization (ranks sharing the card time-slice it, so their profiles
-   overlap; the one-rank NCCL world also gives it from its profile).
+   overlap; the one-rank NCCL world also gives it from its profile). The
+   same 4-rank world then runs the 2-D ``('clients', 'model')`` grids
+   (``make_client_mesh(model=M)``: the params and the EF store held as
+   1/M shards): (g) 2 x 2 fedldf, (h) 2 x 2 setting A, (i) 1 x 4 setting
+   A, (j) 2 x 2 through the host driver with telemetry, equal to (g) bit
+   for bit, its ledger header ``{"clients": 2, "model": 2}``. Each: the
+   exact uplink bytes, every rank's params and each column's EF shards
+   bit for bit, a round a rank 1 row all-gather, 1 all-reduce and 1
+   divergence all-gather (A: and 1 of the EF rows), 1 ``sqdiff_rowsum``
+   (A: and 1 ``fused_uplink_ef``); each round of (g)-(i), chained by
+   resume from the grid's shards (equal to the one 3-round run bit for
+   bit), against rank 0's 1-rank mesh round from the same params and EF
+   store (2e-5, losses 1e-5; bit for bit at C = 1); the shards' bytes at
+   rest a rank (params and the N = 50 store; exact, and the allocator's
+   deltas), the ledger's tier bytes (the reference's ``agg_tier_bytes``
+   at 1/M of the model), and each grid's round wall-clock (median of 3
+   1-round blocks), peak rise and collectives a round.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -351,6 +367,18 @@ UTIL_LAG_S = 0.25           # utilization samples this soon after the start
 # agg_tier_bytes): intra, cross, busiest host
 TIER_BYTES = {MESH_GROUP: (37_677_648.0,) * 3,
               0: (0.0, 56_516_472.0, 113_032_944.0)}
+# (g)-(j): the 2-D ('clients', 'model') grids in the same 4-rank world:
+# name -> (model M, setting A?, telemetry?, driver)
+GRID_RUNS = {"g": (2, False, False, "engine"), "h": (2, True, True, "engine"),
+             "i": (4, True, True, "engine"), "j": (2, False, True, "host")}
+GRID_HELD = ("g", "h", "i")        # each round against the 1-rank mesh's
+# at rest a rank (the reference's fl_param_specs over full-width VGG-9):
+# the params' and the N = 50 EF store's shard bytes, by M
+GRID_AT_REST = {2: (9_430_952, 471_547_600), 4: (4_727_016, 236_350_800)}
+# the aggregation tiers at P = 4,709,706 · 4 / M (payload, intra, cross,
+# busiest host), by (C, M)
+GRID_TIER_BYTES = {(2, 2): (9_419_412.0, 0.0, 9_419_412.0, 18_838_824.0),
+                   (1, 4): (4_709_706.0, 0.0, 0.0, 0.0)}
 
 
 def _mesh_rank(rank, task):
@@ -384,6 +412,11 @@ def _mesh_rank(rank, task):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_client_mesh()
+    # the 2-D grids 2 x 2 and 1 x 4 (new_group is collective: every rank
+    # builds both, in this order) and this rank alone, a 1-rank mesh
+    grids = ({m_: make_client_mesh(model=m_) for m_ in (2, 4)}
+             if task.get("grids") else {})
+    solo = make_client_mesh(1)
     dev = mesh.device
     cfg = vgg9.config()
     params = params_from_numpy(task["params"], dev)
@@ -396,7 +429,17 @@ def _mesh_rank(rank, task):
     def loss_fn(p, batch):
         return classify_loss(p, cfg, batch)
 
-    def config(name):
+    def config(name, telemetry=True):
+        if name in GRID_RUNS:
+            m_, a_, tele_, _ = GRID_RUNS[name]
+            kw = {"mesh": grids[m_]}
+            if tele_ and telemetry:
+                kw["telemetry"] = TelemetryConfig(
+                    ledger_path=task["ledger"], run_id=name)
+            comp = (CompressionConfig(bits=8, error_feedback=True)
+                    if a_ else None)
+            return dataclasses.replace(vgg9.fl_config(compression=comp),
+                                       **kw)
         kw = {"mesh": mesh}
         if name in ("b", "b_tele"):
             kw["agg_group_size"] = MESH_GROUP
@@ -434,10 +477,10 @@ def _mesh_rank(rank, task):
             kw = {"eval_every": 1, "eval_fn": lambda p_: seen.append(
                 params_to_numpy(p_) if rank == 0 else None) or 0.0}
         ops.reset_launch_counts()
-        mesh.reset_counts()
+        fl.mesh.reset_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        if name == "host":
+        if name in ("host", "j"):
             p, log = run_training(params, loss_fn, fldata, fl,
                                   rounds=MESH_ROUNDS, seed=SEED,
                                   sampler="device", device=dev)
@@ -450,7 +493,7 @@ def _mesh_rank(rank, task):
                "uplink": log.meter.uplink_bytes, "digest": digest(p),
                "launches": {k: v for k, v in ops.launch_counts().items()
                             if v},
-               "counts": mesh.counts()}
+               "counts": fl.mesh.counts(), "col": fl.mesh.model_rank}
         if log.final_state is not None:
             run["store"] = digest(log.final_state["client"])
         if rank == 0:
@@ -478,6 +521,10 @@ def _mesh_rank(rank, task):
             same = same and all(torch.equal(a[k], b[k]) for k in a)
         out["batches_equal"] = same
         del rep, shd
+
+    if grids:
+        out["grids"] = _grid_extras(rank, task, grids, solo, params, umap,
+                                    shards, loss_fn, config, digest)
 
     if task.get("timed"):
         fl = config("a")
@@ -548,6 +595,150 @@ def _mesh_rank(rank, task):
             out["synced_block"] = bool(torch.isfinite(
                 fl_server._pull(per)[0]["loss"]).all())
         del carry, per
+    return out
+
+
+def _grid_extras(rank, task, grids, solo, params, umap, shards, loss_fn,
+                 config, digest):
+    """The 2-D grids' checks beyond their runs, in one rank: the bytes
+    at rest a rank, each round of (g)-(i) against this rank's 1-rank mesh
+    round from the same params and EF store (rank 0; the rounds chained
+    by resume from the grid's shards), and each grid's timed rounds."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import vgg9_cifar10 as vgg9
+    from repro_torch.core.comm import comm_acc_init
+    from repro_torch.core.units import tree_leaves, tree_map
+    from repro_torch.federated import (KeyedDraws, make_strategy,
+                                       run_training_scan)
+    from repro_torch.federated import server as fl_server
+    from repro_torch.launch.sharding import (fl_param_specs,
+                                             init_residual_store,
+                                             tree_all_gather,
+                                             tree_shard_slice)
+
+    dev = solo.device
+    out = {}
+
+    def nbytes(tree):
+        return sum(l.numel() * l.element_size() for l in tree_leaves(tree))
+
+    def added(fn):
+        """``fn()`` and what it added on the card: the allocator's bytes
+        (``memory_allocated``, its blocks) and the bytes asked for. The
+        garbage collector is held off meanwhile: a cycle it frees would
+        take its tensors' bytes off the deltas."""
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated(dev)
+            q0 = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+            kept = fn()
+            torch.cuda.synchronize()
+            return (kept, torch.cuda.memory_allocated(dev) - a0,
+                    torch.cuda.memory_stats(dev)
+                    ["requested_bytes.all.current"] - q0)
+        finally:
+            gc.enable()
+
+    def slack(tree):
+        """The allocator's most above the bytes asked for: 512 B a tensor
+        (its rounding), and a cached block up to 1 MiB larger for a tensor
+        over 1 MiB (a remainder that small is not split off)."""
+        return sum(512 + (2 ** 20 if l.numel() * l.element_size() > 2 ** 20
+                          else 0) for l in tree_leaves(tree))
+
+    # ---- at rest: the shards' own bytes and the allocator's deltas ------
+    for m_, gm in grids.items():
+        specs = fl_param_specs(params, gm)
+        # a rank's held params: its shards and the whole 1-D leaves, as
+        # copies (the slice hands back a replicated leaf itself)
+        shard, p_alloc, p_req = added(lambda: tree_map(
+            torch.clone, tree_shard_slice(params, specs, m_,
+                                          gm.model_rank)))
+        store, s_alloc, s_req = added(lambda: init_residual_store(
+            params, vgg9.fl_config().num_clients, gm))
+        out[f"rest{m_}"] = {"params": nbytes(shard), "store": nbytes(store),
+                            "params_alloc": p_alloc, "store_alloc": s_alloc,
+                            "params_req": p_req, "store_req": s_req,
+                            "params_slack": slack(shard),
+                            "store_slack": slack(store)}
+        del shard, store
+
+    # ---- each round against the 1-rank mesh's round ---------------------
+    for name in GRID_HELD:
+        fl = config(name, telemetry=False)
+        gm = fl.mesh
+        fl_solo = dataclasses.replace(fl, mesh=solo)
+        specs = fl_param_specs(params, gm)
+        p_t, st = params, None
+        worst_p = worst_l = 0.0
+        exact = True
+        for t in range(MESH_ROUNDS):
+            whole = None
+            if st is not None:      # the EF store whole, for the solo round
+                whole = {**st, "client": {
+                    n_: tree_all_gather(e, specs, gm, offset=1)
+                    for n_, e in st["client"].items()}}
+            p1, log1 = run_training_scan(p_t, loss_fn, shards, fl, rounds=1,
+                                         start_round=t, seed=SEED,
+                                         server_state=st, device=dev)
+            if rank == 0:
+                pr, logr = run_training_scan(p_t, loss_fn, shards, fl_solo,
+                                             rounds=1, start_round=t,
+                                             seed=SEED, server_state=whole,
+                                             device=dev)
+                d = max(float((a - b).abs().max())
+                        for a, b in zip(tree_leaves(p1), tree_leaves(pr)))
+                dl = abs(log1.losses[0] - logr.losses[0])
+                worst_p, worst_l = max(worst_p, d), max(worst_l, dl)
+                exact = exact and d == 0.0 and dl == 0.0
+                del pr, logr
+            del whole
+            p_t, st = p1, log1.final_state
+        out[f"held_{name}"] = {
+            "worst_p": worst_p, "worst_l": worst_l, "exact": exact,
+            "digest": digest(p_t),
+            "store": None if st is None else digest(st["client"])}
+        del p_t, st
+
+    # ---- timed: 1-round blocks on the grid's shards ---------------------
+    args = (shards, shards.data_sizes(), shards.part_sizes.cpu(),
+            KeyedDraws(SEED))
+    for name in GRID_HELD:
+        fl = config(name, telemetry=False)
+        gm = fl.mesh
+        ps, _, st, layout = fl_server._place(make_strategy(fl), params, None,
+                                             fl, None, dev)
+        block = fl_server._build_block_fn(loss_fn, umap, fl, layout)
+        carry = (ps, st, comm_acc_init(dev))
+        del ps, st
+        carry, per = block(carry, *args, 0, 1)          # warm-up
+        fl_server._pull(per)
+        walls, rises, counts = [], [], []
+        for i in range(TIMED_ROUNDS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            gm.reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            t = time.perf_counter()
+            carry, per = block(carry, *args, 1 + i, 1)
+            fl_server._pull(per)                  # the round's one sync
+            walls.append(time.perf_counter() - t)
+            rises.append(torch.cuda.max_memory_allocated(dev) - held)
+            counts.append(gm.counts())
+        out[f"timed_{name}"] = {
+            "wall_ms": [w_ * 1e3 for w_ in walls],
+            "median_ms": statistics.median(walls) * 1e3,
+            "rise": rises, "held": held, "counts": counts}
+        del carry, per
+    torch.cuda.synchronize()
+    dist.barrier()
     return out
 
 
@@ -663,7 +854,10 @@ def phase18(ctx):
         if len({r_["digest"] for r_ in runs}) != 1 or \
                 any(r_["losses"] != r0["losses"] for r_ in runs):
             fail(f"mesh {label}: the ranks' params or losses differ")
-        if len({r_.get("store") for r_ in runs}) != 1:
+        # the EF store (the rank's shards on a grid): the same bits down
+        # each column
+        if len({(r_["col"], r_.get("store")) for r_ in runs}) != \
+                len({r_["col"] for r_ in runs}):
             fail(f"mesh {label}: the ranks' EF residual stores differ")
         if r0["uplink"] != MESH_ROUNDS * want_up:
             fail(f"mesh {label}: uplink {r0['uplink']} B in {MESH_ROUNDS} "
@@ -677,20 +871,121 @@ def phase18(ctx):
                      f"launched {kern}, expected {want_calls} and "
                      f"{want_kernels}")
         staged = r0["counts"]["staged"]
+        moved = {op: cb[1] / MESH_ROUNDS for op, cb in
+                 r0["counts"].items() if op != "staged" and cb[0]}
         say(f"[mesh {label}] {len(ranks)} ranks, {MESH_ROUNDS} rounds: "
             f"{r0['wall']:.3f} s (rank 0, first-round warm-up included); "
             f"losses {r0['losses']}; uplink {r0['uplink']:.0f} B, exact; "
             f"ranks bit for bit equal (params"
-            + (", EF store" if "store" in r0 else "") + f"); a round a "
-            f"rank: {want_calls}, kernels {want_kernels}; staged {staged[0]}"
-            f" copies, {staged[1]} B, {staged[2] * 1e3:.1f} ms ({smi})")
+            + (", EF store by column" if "store" in r0 else "") + f"); a "
+            f"round a rank: {want_calls}, bytes {moved}, kernels "
+            f"{want_kernels}; staged {staged[0]} copies, {staged[1]} B, "
+            f"{staged[2] * 1e3:.1f} ms ({smi})")
         return r0
+
+    def check_grids(ranks, segs):
+        """(g)-(j): the 2-D ('clients', 'model') grids 2 x 2 and 1 x 4."""
+        runs = {}
+        for name, (m_, a_, tele_, driver) in GRID_RUNS.items():
+            c_ = MESH_WORLD // m_
+            label = (f"{name} {c_}x{m_} " + ("setting A" if a_ else "fedldf")
+                     + (", host driver" if driver == "host" else "")
+                     + (", telemetry" if tele_ else ""))
+            calls = {"all_gather_model": (MESH_ROUNDS + 1) / MESH_ROUNDS,
+                     "all_reduce_flat": 1,
+                     "all_gather_rows": 2 if a_ else 1}
+            runs[name] = check_ranks(
+                label, ranks, name,
+                ctx["want_uplink_a"] if a_ else per_round_up, calls,
+                {"sqdiff_rowsum": 1.0, "fused_uplink_ef": 1.0} if a_
+                else sq1)
+        if runs["j"]["digest"] != runs["g"]["digest"] or \
+                runs["j"]["losses"] != runs["g"]["losses"]:
+            fail("mesh j: the host driver with telemetry differs from (g)")
+        say("[mesh j] 2x2: run_training(sampler='device') with telemetry "
+            "equals the engine's (g) bit for bit")
+        # each round against the 1-rank mesh's, and resume
+        for name in GRID_HELD:
+            m_ = GRID_RUNS[name][0]
+            h0 = ranks[0]["grids"][f"held_{name}"]
+            bad = [r["rank"] for r in ranks
+                   if r["grids"][f"held_{name}"]["digest"] !=
+                   r["runs"][name]["digest"] or
+                   r["grids"][f"held_{name}"]["store"] !=
+                   r["runs"][name].get("store")]
+            if bad:
+                fail(f"mesh {name}: {MESH_ROUNDS} 1-round runs resumed from "
+                     f"the grid's shards differ from the {MESH_ROUNDS}-round "
+                     f"run on ranks {bad}")
+            exact_needed = MESH_WORLD // m_ == 1
+            say(f"[mesh {name}] each round against the 1-rank mesh's round "
+                f"from the same params and EF store (rank 0): params "
+                f"max_abs_diff {h0['worst_p']:.3e}, loss {h0['worst_l']:.3e} "
+                f"(limits {EQUIV_TOL}, 1e-05"
+                + ("; bit for bit at C = 1" if exact_needed else "")
+                + f"): bit for bit {h0['exact']}; resumed round by round = "
+                f"the {MESH_ROUNDS}-round run bit for bit on every rank")
+            if h0["worst_p"] > EQUIV_TOL or h0["worst_l"] > 1e-5 or \
+                    (exact_needed and not h0["exact"]):
+                fail(f"mesh {name}: a round differs from the 1-rank mesh's")
+        # at rest
+        for m_, (want_p, want_s) in GRID_AT_REST.items():
+            rest = [r["grids"][f"rest{m_}"] for r in ranks]
+            if any((x["params"], x["params_req"], x["store"],
+                    x["store_req"]) != (want_p, want_p, want_s, want_s) or
+                   not 0 <= x["params_alloc"] - want_p <= x["params_slack"]
+                   or not 0 <= x["store_alloc"] - want_s <= x["store_slack"]
+                   for x in rest):
+                fail(f"mesh grid M={m_}: bytes at rest a rank {rest}, "
+                     f"expected params {want_p}, store {want_s}")
+            say(f"[mesh rest M={m_}] a rank at rest: params "
+                f"{rest[0]['params']} B, EF store (N=50) {rest[0]['store']} "
+                f"B (the shards' bytes, and the bytes the ranks asked the "
+                f"allocator for, exact); torch.cuda.memory_allocated deltas "
+                f"{[x['params_alloc'] for x in rest]} / "
+                f"{[x['store_alloc'] for x in rest]} B (its blocks; at most "
+                f"{rest[0]['params_slack']} / {rest[0]['store_slack']} B "
+                f"above) ({smi})")
+        # the ledger: header and tier bytes
+        for name in ("h", "i", "j"):
+            m_ = GRID_RUNS[name][0]
+            c_ = MESH_WORLD // m_
+            meta, recs = segs[name]["meta"], segs[name]["rounds"]
+            tiers = agg_tier_bytes(umap.total_bytes / m_, c_, 0)
+            want = GRID_TIER_BYTES[(c_, m_)]
+            keys = ("agg_payload_bytes", "agg_intra_bytes",
+                    "agg_cross_bytes", "agg_cross_bytes_per_host")
+            got = [tuple(x["comm"][k_] for k_ in keys) for x in recs]
+            if meta["mesh"] != {"clients": c_, "model": m_} or \
+                    meta["agg"] != {"group_size": c_, "num_groups": 1,
+                                    "tiers": 1} or \
+                    tuple(tiers[k_] for k_ in keys) != want or \
+                    any(g_ != want for g_ in got) or \
+                    len(recs) != MESH_ROUNDS:
+                fail(f"mesh ledger {name}: mesh {meta['mesh']}, agg "
+                     f"{meta['agg']}, tier bytes {got}, expected {want}")
+            say(f"[mesh ledger {name}] header mesh {meta['mesh']} agg "
+                f"{meta['agg']}; every round payload / intra / cross / "
+                f"busiest host {got[0]} B (the reference's agg_tier_bytes)")
+        # timed
+        for name in GRID_HELD:
+            m_ = GRID_RUNS[name][0]
+            tm = [r["grids"][f"timed_{name}"] for r in ranks]
+            wall = statistics.median(t_["median_ms"] for t_ in tm)
+            c0 = tm[0]["counts"][-1]
+            say(f"[times] mesh grid {name} {MESH_WORLD // m_}x{m_}: round "
+                f"wall-clock {wall:.3f} ms (the ranks' medians of "
+                f"{TIMED_ROUNDS} 1-round blocks: "
+                f"{[round(t_['median_ms'], 3) for t_ in tm]}); peak rise a "
+                f"round above what was held {[t_['rise'] for t_ in tm]} B "
+                f"(held {[t_['held'] for t_ in tm]} B); rank 0's "
+                f"collectives a round {c0} ({smi})")
 
     # ---- (a), (b), (c), (e): 4 gloo ranks sharing the card -------------
     ledger = str(tdir / "ledger.jsonl")
     flat_calls = {"all_reduce_flat": 1, "all_gather_rows": 1}
-    g4 = world(MESH_WORLD, "gloo", ledger=ledger, timed=True,
-               plan=("a", "a_tele", "host", "b_tele", "c"),
+    g4 = world(MESH_WORLD, "gloo", ledger=ledger, timed=True, grids=True,
+               plan=("a", "a_tele", "host", "b_tele", "c", *GRID_RUNS),
                per_round=("a", "b_tele"))
     add_launches(g4)
     sq1 = {"sqdiff_rowsum": 1.0}
@@ -727,7 +1022,7 @@ def phase18(ctx):
     # the ledger (rank 0 alone writes it) and the monitor
     segs = {s_["meta"]["run_id"]: s_ for s_ in split_runs(
         read_ledger(ledger))}
-    if sorted(segs) != ["a_tele", "b_tele"]:
+    if sorted(segs) != ["a_tele", "b_tele", "h", "i", "j"]:
         fail(f"mesh: ledger segments {sorted(segs)}")
     for name, gs in (("a_tele", 0), ("b_tele", MESH_GROUP)):
         meta, recs = segs[name]["meta"], segs[name]["rounds"]
@@ -757,6 +1052,9 @@ def phase18(ctx):
         fail(f"mesh: the monitor printed no tier line:\n{buf.getvalue()}")
     for l_ in tier_lines:
         say(f"[monitor] {l_.strip()}")
+
+    # ---- (g)-(j): the 2-D grids, in the same world ----------------------
+    check_grids(g4, segs)
 
     # ---- (d) sample sharding, 2 gloo ranks ------------------------------
     g2 = world(SHARD_WORLD, "gloo", plan=("rep", "shard"))
@@ -3737,7 +4035,7 @@ def main():
                  f"copies")
         del c17, per17, host17
         times = {False: [], True: []}
-        for on in (False, True, True, False) * 2 + (False, True):
+        for on in (False, True, True, False, False, True):
             c17 = fresh17()
             torch.cuda.synchronize()
             g0 = gc_s[0]
@@ -3784,7 +4082,7 @@ def main():
         (e_off, w_off, b_off, raw_off, gc_off), \
             (e_on, w_on, b_on, raw_on, gc_on) = (blk[label][False],
                                                  blk[label][True])
-        say(f"[times] telemetry {label} (engine, 2-round blocks, median of 5,"
+        say(f"[times] telemetry {label} (engine, 2-round blocks, median of 3,"
             f" off and on in turns): round wall-clock off {w_off:.3f} ms "
             f"{raw_off}, on {w_on:.3f} ms {raw_on} "
             f"({(w_on / w_off - 1) * 100:+.2f} %); in the garbage collector "

@@ -202,11 +202,13 @@ def unpack(buf: torch.Tensor, layout: tuple) -> Pytree:
 
 
 def hierarchical_psum(tree: Pytree, mesh, group_size: int) -> Pytree:
-    """Two-tier all-reduce over the mesh's ranks (population-scale
-    rounds), port of the reference's.
+    """Two-tier all-reduce over the mesh's clients axis (population-scale
+    rounds; on a 2-D mesh within this rank's column), port of the
+    reference's.
 
     Tier 1: an all-reduce within each block of ``group_size`` consecutive
-    ranks (intra-host links when the ranks of a host are consecutive).
+    client coordinates (intra-host links when the ranks of a host are
+    consecutive).
     Tier 2: a ring across the G blocks, ``G − 1`` rotations by
     ``group_size`` (:meth:`ClientMesh.ring_shift`), so no single root
     absorbs all D partials. Each rank keeps the block sums it receives and
@@ -217,7 +219,7 @@ def hierarchical_psum(tree: Pytree, mesh, group_size: int) -> Pytree:
     tree (a nested dict) travels as one flat f32 buffer (:func:`pack`);
     the result equals
     a flat all-reduce up to f32 summation order."""
-    d = mesh.size
+    d = mesh.client_size
     if d % group_size:
         raise ValueError(
             f"hierarchical_psum: group_size={group_size} must divide the "
@@ -228,7 +230,7 @@ def hierarchical_psum(tree: Pytree, mesh, group_size: int) -> Pytree:
         return unpack(mesh.all_reduce_flat(buf), layout)
     if group_size > 1:
         buf = mesh.group_all_reduce(buf, group_size)
-    g = mesh.rank // group_size
+    g = mesh.client_rank // group_size
     sums: list = [None] * num_groups
     sums[g] = rot = buf
     for step in range(1, num_groups):
@@ -241,11 +243,11 @@ def hierarchical_psum(tree: Pytree, mesh, group_size: int) -> Pytree:
 
 
 def mesh_psum(tree: Pytree, mesh, group_size: int = 0) -> Pytree:
-    """Σ of ``tree`` over the mesh's ranks in ONE collective over one
-    flat f32 buffer: a flat all-reduce, or with ``0 < group_size <`` mesh
-    size the two-tier :func:`hierarchical_psum` (the reference's round
-    ``reduce_``)."""
-    if group_size and group_size < mesh.size:
+    """Σ of ``tree`` over the mesh's clients axis in ONE collective over
+    one flat f32 buffer: a flat all-reduce, or with ``0 < group_size <``
+    the axis size the two-tier :func:`hierarchical_psum` (the reference's
+    round ``reduce_``)."""
+    if group_size and group_size < mesh.client_size:
         return hierarchical_psum(tree, mesh, group_size)
     buf, layout = pack(tree)
     return unpack(mesh.all_reduce_flat(buf), layout)

@@ -53,7 +53,7 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
     k = selection.shape[0]
     dev = selection.device
     if mesh is not None:
-        k *= mesh.size                  # global K across the mesh
+        k *= mesh.client_size           # global K across the mesh
     if unit_bytes_override is not None:
         unit_bytes = torch.as_tensor(unit_bytes_override,
                                      dtype=torch.float32, device=dev)

@@ -184,12 +184,13 @@ class ClientShards:
         if not shard_samples or d <= 1:
             return self.to(mesh.device)
         src = self.with_affinity(d)
-        lo = mesh.rank * src.group_block
+        lo = mesh.client_rank * src.group_block
         if src.is_block:                 # placed so before
             if src.sample_base != lo:
                 raise ValueError(
                     f"place: these shards hold the block at row "
-                    f"{src.sample_base}, not rank {mesh.rank}'s")
+                    f"{src.sample_base}, not rank {mesh.client_rank}'s "
+                    "(client coordinate)")
             return src.to(mesh.device)
         return dataclasses.replace(
             src, xs=src.xs[lo:lo + src.group_block].to(mesh.device,

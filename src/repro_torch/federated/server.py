@@ -73,7 +73,7 @@ losses in the block's one pull. ``telemetry=None`` leaves every round,
 block and printed line as it is without telemetry; with it on, the
 trajectories are the same bit for bit (taps only read).
 
-Both drivers scale past one device over a 1-D client mesh
+Both drivers scale past one device over a client mesh
 (``FLConfig(mesh=make_client_mesh(D))``, :mod:`repro_torch.launch.mesh`):
 one process (rank) a device, each running the same driver. Every rank
 draws the same participants and batch indices from the keyed streams,
@@ -84,13 +84,25 @@ every rank), and the Eq. 5 numerators and denominator, the loss sum and
 the taps' client partials travel in ONE cross-rank sum over one flat f32
 buffer (flat, or two-tier with ``agg_group_size``), after which every rank
 divides, so every rank holds the same new model. The round's new EF rows
-are all-gathered and scattered into every rank's whole N-row store. Comm
-bytes come from the full selection, exactly as on one device.
+are all-gathered and scattered into every rank's N-row store. Comm bytes
+come from the full selection, exactly as on one device.
 ``shard_samples=True`` keeps only the rank's affinity block of the dataset
 on its device. Rank 0 alone writes the ledger, prints and profiles.
 
-Not yet ported (ROADMAP Queue 1): the JAX-key sampler (item 7), and the
-2-D ``('clients', 'model')`` mesh (item 11).
+On the 2-D ``('clients', 'model')`` mesh (``make_client_mesh(D,
+model=M)``, a grid of C = D/M client rows of M ranks) the client split is
+over the C rows (the M ranks of a row train the same K/C clients), and
+the params, the frozen base and every param-shaped client store (the EF
+residuals) are held between rounds as the rank's 1/M shards
+(:mod:`repro_torch.launch.sharding`, FSDP). A round all-gathers them over
+the rank's row (one collective), trains and scores on the whole model,
+and slices the Eq. 5 numerators back to the rank's shard before the one
+cross-rank sum, which runs over the rank's column (the ranks of one shard
+index). Gather and slice are exact, so a 2-D round is the 1-D mesh round
+of C ranks bit for bit. Both drivers return the whole model on every rank
+(gathered once at the end) and ``log.final_state`` as the rank's shards.
+
+Not yet ported (ROADMAP Queue 1): the JAX-key sampler (item 7).
 """
 from __future__ import annotations
 
@@ -117,7 +129,9 @@ from repro_torch.federated.strategies import (FedADPOptions, FedLAMAOptions,
                                               FedLPOptions, get_strategy_cls,
                                               make_strategy,
                                               registered_algos)
-from repro_torch.launch.mesh import client_mesh_size
+from repro_torch.launch.mesh import client_mesh_size, model_mesh_size
+from repro_torch.launch.sharding import (fl_param_specs, tree_all_gather,
+                                         tree_shard_slice)
 from repro_torch.optim.opt import Optimizer, sgd
 from repro_torch.telemetry import (ProgressSink, RoundLedger,
                                    TelemetryConfig)
@@ -385,7 +399,8 @@ def _full_fp32() -> None:
 # Round builders
 # ======================================================================
 def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
-                     opt: Optimizer | None = None):
+                     opt: Optimizer | None = None, *,
+                     layout: Optional["ModelLayout"] = None):
     """Round function with parallel (stacked) clients:
     ``round_fn(params, batch, data_sizes, state=None, uniform=None) ->
     (new_params, metrics)`` with batch leaves ``(K, B, ...)`` and
@@ -406,14 +421,16 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
 
     With ``flcfg.mesh`` the round is this rank's share of the client-
     sharded round (:func:`_build_round_vmap_sharded`): ``batch``,
-    ``data_sizes`` and the state's client rows are the rank's K/D rows,
-    and every metric, and the state's client rows, come back for all K."""
+    ``data_sizes`` and the state's client rows are the rank's K/C rows,
+    and every metric, and the state's client rows, come back for all K.
+    On a 2-D mesh ``layout`` (:class:`ModelLayout`) is required: ``params``,
+    ``frozen`` and the state come in and go out as the rank's shards."""
     _full_fp32()
     local_update = _local_update(loss_fn, flcfg, opt)
     strategy = make_strategy(flcfg)
     if flcfg.mesh is not None:
         return _build_round_vmap_sharded(local_update, umap, flcfg,
-                                         strategy)
+                                         strategy, layout)
     k = flcfg.clients_per_round
     taps_on = _taps_on(flcfg)
 
@@ -592,7 +609,7 @@ def _transform_uploads(strategy, locals_: Pytree, params: Pytree,
 
 
 def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
-                              strategy):
+                              strategy, layout: Optional["ModelLayout"]):
     """This rank's share of the client-sharded vmap round, port of the
     reference's ``shard_map`` body: each of the mesh's D ranks trains its
     K/D clients, and one ``torch.distributed`` call stands for each
@@ -618,10 +635,29 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
       runs on the same inputs on every rank); client entries enter as the
       rank's rows, and the round's new rows are all-gathered (one
       collective) so the drivers write the same K rows into every rank's
-      whole N-row store.
+      N-row store.
+
+    On a 2-D mesh (C client rows of M ranks) the "ranks" above are the C
+    client coordinates, and every clients-axis collective runs within the
+    rank's column. ``params``, ``frozen`` and the state's param-shaped
+    client rows come in as the rank's 1/M shards (``layout``'s specs):
+    one all-gather over the rank's row gives the whole model, the frozen
+    base and the rows for training, Eq. 3 and the uplink kernel; the Eq. 5
+    numerators (and a param-shaped denominator, FedADP's) are sliced back
+    to the shard before the sum, which divides on the shard; the state
+    goes back to shards before its rows are all-gathered. The taps' client
+    partials come from the whole rows, so the column's sum is the whole
+    norm. The aggregation tiers are priced at 1/M of the model, as the
+    reference's (the replicated 1-D leaves are not subtracted).
     """
     mesh = flcfg.mesh
     d = client_mesh_size(mesh)
+    m = model_mesh_size(mesh)
+    if m > 1 and layout is None:
+        raise ValueError(
+            "a round on a 2-D ('clients', 'model') mesh needs the run's "
+            "ModelLayout (the drivers build it: run_training, "
+            "run_training_scan)")
     k = flcfg.clients_per_round
     kloc = k // d
     taps_on = _taps_on(flcfg)
@@ -629,12 +665,15 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
     hier = bool(gs) and gs < d
     if hier:
         mesh.tier_group(gs)     # collective: every rank, before any round
-    tier_bytes = comm_mod.agg_tier_bytes(umap.total_bytes, d,
+    tier_bytes = comm_mod.agg_tier_bytes(umap.total_bytes / m, d,
                                          gs if hier else 0)
 
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
                  state: Optional[dict] = None, uniform=None,
                  frozen: Optional[Pytree] = None):
+        shard = params
+        if m > 1:
+            params, frozen, state = layout.gather(params, frozen, state)
         locals_, losses = torch.func.vmap(
             _with_frozen(local_update, frozen), in_dims=(None, 0))(
                 params, batch)
@@ -644,7 +683,7 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
         dev = data_sizes.device
         selection = strategy.select_with_state(
             state, divs, uniform, k, umap.num_units, flcfg.top_n, dev)
-        sel_loc = local_rows(selection, mesh.rank, kloc)
+        sel_loc = local_rows(selection, mesh.client_rank, kloc)
         res_rows = _residual_rows(strategy, state)
 
         wire = None
@@ -662,6 +701,8 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
         if strategy.tracks_residuals:
             state = {**state, "client": {**state["client"],
                                          "residual": new_rows}}
+        if m > 1:
+            parts, denom_loc = layout.slice_parts(parts, denom_loc)
         # the taps' client-state partials (the rank's rows) ride the same
         # sum: taps add no collective
         client_sq = {}
@@ -671,7 +712,7 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
                               "loss": losses.sum(), "client_sq": client_sq},
                              mesh, gs if hier else 0)
         new_params = strategy.psum_finalize(sums["parts"], sums["denom"],
-                                            umap, params, params)
+                                            umap, shard, shard)
         for name, v in tier_bytes.items():
             comm[name] = torch.full((), v, dtype=torch.float32, device=dev)
         metrics = {"loss": sums["loss"] / k, "comm": comm,
@@ -680,8 +721,9 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
         if state is not None:
             state = strategy.update_state(state, selection, divs, umap,
                                           uniform=uniform)
-            metrics["state"] = _gather_client_rows(
-                state, strategy.state_specs(params, state, mesh), mesh)
+            if m > 1:
+                state = layout.slice_state(state)
+            metrics["state"] = _gather_client_rows(state, mesh)
         if taps_on:
             # the client norms from the summed partials ({} without
             # client state), never from the gathered rows
@@ -696,12 +738,12 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
     return round_fn
 
 
-def _gather_client_rows(state: dict, specs: dict, mesh) -> dict:
-    """The state with every rank-split client entry's (K/D, ...) rows
-    all-gathered into the round's (K, ...) rows, in rank order: one
+def _gather_client_rows(state: dict, mesh) -> dict:
+    """The state with every client entry's (K/C, ...) rows all-gathered
+    into the round's (K, ...) rows, in client-coordinate order: one
     collective over one buffer of every such leaf, each leaf's dtype kept
     (a cast to f32 and back is exact for f32, bf16 and f16)."""
-    names = [n_ for n_, spec in specs["client"].items() if spec is not None]
+    names = list(state.get("client") or {})
     if not names:
         return state
     leaves = [l for n_ in names for l in tree_leaves(state["client"][n_])]
@@ -736,9 +778,10 @@ def _with_frozen(local_update, frozen: Optional[Pytree]):
 
 
 def build_round_fn(loss_fn, umap: UnitMap, flcfg: FLConfig,
-                   opt: Optimizer | None = None):
+                   opt: Optimizer | None = None, *,
+                   layout: Optional["ModelLayout"] = None):
     if flcfg.mode == "vmap":
-        return build_round_vmap(loss_fn, umap, flcfg, opt)
+        return build_round_vmap(loss_fn, umap, flcfg, opt, layout=layout)
     return build_round_scan(loss_fn, umap, flcfg, opt)
 
 
@@ -800,6 +843,109 @@ def _state_scatter(state: Optional[dict], new_state: dict,
     return out
 
 
+def _same_structure(a: Pytree, b: Pytree) -> bool:
+    return tree_map(lambda _: None, a) == tree_map(lambda _: None, b)
+
+
+def _shift(specs: Pytree) -> Pytree:
+    """Specs of client rows: a leading client axis the specs do not name."""
+    return tree_map(lambda s: (None,) + s, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelLayout:
+    """A run's placement over the 'model' axis of a 2-D mesh (the in and
+    out specs of the reference's ``shard_map`` body): the
+    :func:`~repro_torch.launch.sharding.fl_param_specs` of the trainable
+    params and of the frozen base (None without a partition), and the
+    strategy's ``state_specs`` (None when stateless). The drivers build
+    it once (:meth:`of`) and cut the run's trees to this rank's shards
+    (:meth:`shard`); the round gathers them whole (:meth:`gather`) and
+    cuts back (:meth:`slice_parts`, :meth:`slice_state`)."""
+
+    mesh: Any
+    params: Pytree
+    frozen: Optional[Pytree]
+    state: Optional[dict]
+
+    @classmethod
+    def of(cls, flcfg: FLConfig, strategy, params: Pytree,
+           frozen: Optional[Pytree],
+           state: Optional[dict]) -> Optional["ModelLayout"]:
+        """The layout of whole ``params`` and ``frozen`` and the run's
+        ``state`` on ``flcfg.mesh``; None off a 2-D mesh."""
+        mesh = flcfg.mesh
+        if mesh is None or model_mesh_size(mesh) == 1:
+            return None
+        return cls(mesh, fl_param_specs(params, mesh),
+                   None if frozen is None else fl_param_specs(frozen, mesh),
+                   None if state is None else
+                   strategy.state_specs(params, state, mesh))
+
+    def _cut(self, tree: Pytree, specs: Pytree, offset: int = 0) -> Pytree:
+        return tree_shard_slice(tree, specs, self.mesh.model_size,
+                                self.mesh.model_rank, offset)
+
+    def _state_specs(self, state: dict) -> dict:
+        """Specs of a round's state view: client rows shifted by their
+        client axis."""
+        return {kind: {n_: (_shift(self.state[kind][n_]) if kind == "client"
+                            else self.state[kind][n_])
+                       for n_ in state[kind]}
+                for kind in ("client", "global") if state.get(kind)}
+
+    def shard(self, params: Pytree, frozen: Optional[Pytree],
+              state: Optional[dict]):
+        """This rank's shards of whole ``params`` and ``frozen``, and the
+        run's state with every whole param-shaped client store cut to its
+        shard (a store created sharded, or a ``final_state`` of this grid,
+        is kept as it is; global entries are kept as they are)."""
+        whole = tree_map(lambda l: tuple(l.shape), params)
+        if state is not None and state.get("client"):
+            client = {}
+            for n_, e in state["client"].items():
+                specs = self.state["client"][n_]
+                if _same_structure(e, params) and all(
+                        tuple(l.shape[1:]) == w for l, w in
+                        zip(tree_leaves(e), tree_leaves(whole))):
+                    e = self._cut(e, specs, 1)
+                client[n_] = e
+            state = {**state, "client": client}
+        return (self._cut(params, self.params),
+                None if frozen is None else self._cut(frozen, self.frozen),
+                state)
+
+    def gather(self, params: Pytree, frozen: Optional[Pytree],
+               state: Optional[dict]):
+        """The whole params, frozen base and state rows from this rank's
+        shards: ONE all-gather over the rank's model row."""
+        tree, specs = {"params": params}, {"params": self.params}
+        if frozen is not None:
+            tree["frozen"], specs["frozen"] = frozen, self.frozen
+        if state is not None:
+            st_specs = self._state_specs(state)
+            tree["state"] = {kind: state[kind] for kind in st_specs}
+            specs["state"] = st_specs
+        full = tree_all_gather(tree, specs, self.mesh)
+        if state is not None:
+            state = {**state, **full["state"]}
+        return full["params"], full.get("frozen"), state
+
+    def slice_parts(self, parts: Pytree, denom: Pytree):
+        """Eq. 5 numerators (and a param-structured denominator, FedADP's
+        element-wise counts; the (U,) one stays whole) cut to this rank's
+        shard."""
+        if isinstance(denom, dict) and _same_structure(denom, parts):
+            denom = self._cut(denom, self.params)
+        return self._cut(parts, self.params), denom
+
+    def slice_state(self, state: dict) -> dict:
+        """A round's whole state view cut back to this rank's shards."""
+        st_specs = self._state_specs(state)
+        return {**state, **{kind: self._cut(state[kind], st_specs[kind])
+                            for kind in st_specs}}
+
+
 def _initial_state(strategy, params: Pytree, flcfg: FLConfig,
                    server_state: Optional[dict], device) -> Optional[dict]:
     """The state the first round sees: ``server_state`` copied once onto
@@ -832,12 +978,12 @@ def _step(round_fn, params: Pytree, state: Optional[dict], batch: dict,
 
 def _rank_rows(flcfg: FLConfig) -> slice:
     """This rank's rows of a round's K participants: all of them off the
-    mesh, ``[r·K/D, (r+1)·K/D)`` on rank r of D."""
+    mesh, ``[c·K/C, (c+1)·K/C)`` at client coordinate c of C."""
     mesh = flcfg.mesh
     if mesh is None:
         return slice(None)
     kloc = flcfg.clients_per_round // client_mesh_size(mesh)
-    return slice(mesh.rank * kloc, (mesh.rank + 1) * kloc)
+    return slice(mesh.client_rank * kloc, (mesh.client_rank + 1) * kloc)
 
 
 def _check_rank_clients(flcfg: FLConfig, clients: torch.Tensor,
@@ -849,12 +995,13 @@ def _check_rank_clients(flcfg: FLConfig, clients: torch.Tensor,
     if not flcfg.shard_samples or client_mesh_size(mesh) <= 1:
         return
     cpg = flcfg.num_clients // client_mesh_size(mesh)
-    if not bool((clients[..., rows] // cpg == mesh.rank).all()):
+    c = mesh.client_rank
+    if not bool((clients[..., rows] // cpg == c).all()):
         raise ValueError(
-            f"shard_samples: rank {mesh.rank}'s participants "
+            f"shard_samples: client row {c}'s participants "
             f"{clients[..., rows].tolist()} are not all in its affinity "
-            f"group [{mesh.rank * cpg}, {(mesh.rank + 1) * cpg}); draw the "
-            "cohort per group (RoundDraws.clients(N, K, num_groups))")
+            f"group [{c * cpg}, {(c + 1) * cpg}); draw the cohort per group "
+            "(RoundDraws.clients(N, K, num_groups))")
 
 
 def _device_of(device, flcfg: FLConfig) -> torch.device:
@@ -879,17 +1026,40 @@ def _round_uniform(rd, device) -> Callable:
 
 
 def _split(params: Pytree, flcfg: FLConfig):
-    """``(trainable, frozen, merged, partition_info)``: the params split
-    once by ``flcfg.partition`` (``frozen`` None without one), the function
-    that reassembles a full model from trainable leaves, and the
-    partition's trainable/frozen totals for the ledger header (None
-    without one)."""
+    """``(trainable, frozen, partition_info)``: the params split once by
+    ``flcfg.partition`` (``frozen`` None without one) and the partition's
+    trainable/frozen totals for the ledger header (None without one)."""
     partition = flcfg.partition
     if partition is None:
-        return params, None, lambda p: p, None
+        return params, None, None
     info = partition_counts(partition, params)
     trainable, frozen = partition.split(params)
-    return (trainable, frozen, lambda p: partition.merge(p, frozen), info)
+    return trainable, frozen, info
+
+
+def _place(strategy, params: Pytree, frozen: Optional[Pytree],
+           flcfg: FLConfig, server_state: Optional[dict], device):
+    """``(params, frozen, state, layout)`` of a run: the initial state
+    (:func:`_initial_state`) and, on a 2-D mesh, the run's
+    :class:`ModelLayout` with the params, the frozen base and the state's
+    param-shaped stores cut to this rank's shards (``layout`` None
+    elsewhere, where every tree stays whole)."""
+    state = _initial_state(strategy, params, flcfg, server_state, device)
+    layout = ModelLayout.of(flcfg, strategy, params, frozen, state)
+    if layout is not None:
+        params, frozen, state = layout.shard(params, frozen, state)
+    return params, frozen, state, layout
+
+
+def _whole(params: Pytree, frozen: Optional[Pytree], flcfg: FLConfig,
+           layout: Optional[ModelLayout]) -> Pytree:
+    """The full model of the run's trainable leaves and frozen base
+    (gathered whole over the rank's row on a 2-D mesh, a collective)."""
+    if layout is not None:
+        params, frozen, _ = layout.gather(params, frozen, None)
+    if flcfg.partition is None:
+        return params
+    return flcfg.partition.merge(params, frozen)
 
 
 def _run_meta(flcfg: FLConfig, *, driver: str, umap: UnitMap, seed: int,
@@ -1004,8 +1174,12 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     With ``flcfg.mesh`` every rank of the mesh calls this with the same
     arguments and runs on the mesh's device (of ``device``'s type): both
     samplers draw the whole cohort on every rank and each rank gathers its
-    K/D rows; ``flcfg.shard_samples`` needs ``sampler="device"``. Every
-    rank returns the same model and log.
+    K/C rows; ``flcfg.shard_samples`` needs ``sampler="device"``. Every
+    rank returns the same model and log. On a 2-D mesh the params, the
+    frozen base and the EF store are held as the rank's shards between
+    rounds; ``eval_fn`` sees and the driver returns the whole model
+    (gathered over the rank's row), ``log.final_state`` is the rank's
+    shards, and ``server_state`` may be whole or such shards.
     """
     if sampler == "jax":
         raise NotImplementedError(
@@ -1017,13 +1191,14 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         raise ValueError(f"sampler must be 'host' or 'device', got "
                          f"{sampler!r}")
     device = _device_of(device, flcfg)
-    params, frozen, merged, pinfo = _split(
+    params, frozen, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
-    round_fn = build_round_fn(loss_fn, umap, flcfg)
-    prof_mod.note_engine_cache("round", hit=False)
     strategy = make_strategy(flcfg)
-    state = _initial_state(strategy, params, flcfg, server_state, device)
+    params, frozen, state, layout = _place(strategy, params, frozen, flcfg,
+                                           server_state, device)
+    round_fn = build_round_fn(loss_fn, umap, flcfg, layout=layout)
+    prof_mod.note_engine_cache("round", hit=False)
     draws = draws if draws is not None else KeyedDraws(seed)
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
@@ -1045,8 +1220,10 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         sampler=sampler, start_round=start_round, rounds=rounds,
         partition_info=pinfo)
     last = start_round + rounds - 1
+    whole = None
     try:
         for t in range(start_round, start_round + rounds):
+            whole = None
             win.round_begin(t)
             wall0 = time.perf_counter() if sample_sys else None
             rd = draws(t)
@@ -1088,7 +1265,8 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
                              selection=out.get("selection"),
                              wall_s=wall_s, mem_peak_bytes=mem)
             if eval_fn is not None and (t % eval_every == 0 or t == last):
-                err = float(eval_fn(merged(params)))
+                whole = _whole(params, frozen, flcfg, layout)
+                err = float(eval_fn(whole))
                 log.test_errors.append((t, err, log.meter.uplink_bytes))
                 if ledger is not None:
                     ledger.eval(t, err, log.meter.uplink_bytes)
@@ -1102,7 +1280,9 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         if ledger is not None:
             ledger.close()
     log.final_state = state
-    return merged(params), log
+    if whole is None:
+        whole = _whole(params, frozen, flcfg, layout)
+    return whole, log
 
 
 # ======================================================================
@@ -1156,7 +1336,8 @@ def _pull(tree: dict) -> tuple[dict, int]:
     return out, len(items)
 
 
-def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
+def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig,
+                    layout: Optional[ModelLayout] = None):
     """Multi-round block: ``run_block(carry, shards, all_sizes, host_sizes,
     draws, t0, num) -> (carry, per_round)`` advances the carry (params,
     strategy state, comm accumulator) by ``num`` rounds from the absolute
@@ -1170,9 +1351,11 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig):
     (num,) tensors) and, as the config asks, ``taps`` (a dict of (num,
     ...) tensors) and ``selection`` (num, K, U), stacked on the device at
     the block's end; the carry does not grow. ``frozen`` is the frozen base
-    of a partitioned run (see :func:`build_round_vmap`).
+    of a partitioned run (see :func:`build_round_vmap`). On a 2-D mesh the
+    carry's params and state and ``frozen`` are the rank's shards of
+    ``layout``.
     """
-    round_fn = build_round_fn(loss_fn, umap, flcfg)
+    round_fn = build_round_fn(loss_fn, umap, flcfg, layout=layout)
     tele = flcfg.telemetry
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
@@ -1252,14 +1435,15 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     :func:`run_training`.
     """
     device = _device_of(device, flcfg)
-    params, frozen, merged, pinfo = _split(
+    params, frozen, pinfo = _split(
         tree_map(lambda l: l.to(device), params), flcfg)
     umap = UnitMap.build(params)
     shards = _device_shards(fldata, device, flcfg)
-    run_block = _build_block_fn(loss_fn, umap, flcfg)
-    prof_mod.note_engine_cache("block", hit=False)
     strategy = make_strategy(flcfg)
-    state0 = _initial_state(strategy, params, flcfg, server_state, device)
+    params, frozen, state0, layout = _place(strategy, params, frozen, flcfg,
+                                            server_state, device)
+    run_block = _build_block_fn(loss_fn, umap, flcfg, layout)
+    prof_mod.note_engine_cache("block", hit=False)
     carry = (params, state0, comm_mod.comm_acc_init(device))
     all_sizes = shards.data_sizes()
     host_sizes = shards.part_sizes.cpu()
@@ -1270,8 +1454,10 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         sampler="device", start_round=start_round, rounds=rounds,
         partition_info=pinfo)
     t0 = 0
+    whole = None
     try:
         for cut in _eval_cuts(rounds, eval_every, eval_fn is not None):
+            whole = None
             num = cut - t0
             win.block_begin(start_round + t0, start_round + cut)
             wall0 = time.perf_counter() if sample_sys else None
@@ -1306,7 +1492,8 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
                         wall_s=wall_each, mem_peak_bytes=mem)
             t_last = start_round + cut - 1
             if eval_fn is not None:
-                err = float(eval_fn(merged(carry[0])))
+                whole = _whole(carry[0], frozen, flcfg, layout)
+                err = float(eval_fn(whole))
                 log.test_errors.append((t_last, err, float(uplink[-1])))
                 if ledger is not None:
                     ledger.eval(t_last, err, float(uplink[-1]))
@@ -1323,4 +1510,6 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     params, final_state, acc = carry
     log.meter = comm_mod.CommMeter.from_accumulator(acc)
     log.final_state = final_state
-    return merged(params), log
+    if whole is None:
+        whole = _whole(params, frozen, flcfg, layout)
+    return whole, log

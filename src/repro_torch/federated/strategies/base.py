@@ -50,15 +50,16 @@ stateless). A stateful strategy returns ``{"client": {name: store},
 "global": {name: tree}}``; each client store's leaves carry a leading
 ``(num_clients,)`` axis, and the drivers hand the round the participants'
 rows only. The error-feedback residual store is the client entry
-``"residual"`` that the quantize wrapper declares. On a 1-D client mesh
-every rank holds the whole N-row store (the reference's replicated store):
-the round gets the rank's K/D rows, and the drivers write the round's K
-new rows, all-gathered, into every rank's store. ``state_specs`` says
-which entries are split by rank in a round (client rows) and which are
-replicated (global entries). In the mesh round, global entries and the
-all-gathered divergences may drive selection on every rank alike; client
-rows are the rank's own, so ``select_with_state`` and ``update_state``
-touch them only row by row.
+``"residual"`` that the quantize wrapper declares. On a client mesh every
+rank holds all N rows of a store (the reference's store, replicated over
+its client-id axis): the round gets the rank's K/C rows, and the drivers
+write the round's K new rows, all-gathered, into every rank's store.
+``state_specs`` gives each entry's 'model'-axis specs: on a 2-D mesh a
+param-shaped client entry is held as the rank's 1/M shard of every row,
+like the params, and every other entry whole. In the mesh round, global
+entries and the all-gathered divergences may drive selection on every rank
+alike; client rows are the rank's own, so ``select_with_state`` and
+``update_state`` touch them only row by row.
 
 Per-strategy knobs: a strategy declares an :attr:`options_cls` dataclass;
 ``FLConfig(algo_options=...)`` carries an instance, resolved by
@@ -92,8 +93,9 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.core import comm as comm_mod
-from repro_torch.core.units import UnitMap, tree_leaves
-from repro_torch.launch.mesh import CLIENT_AXIS
+from repro_torch.core.units import UnitMap, tree_leaves, tree_map
+from repro_torch.launch.mesh import model_mesh_size
+from repro_torch.launch.sharding import fl_param_specs, shard_shape
 from repro_torch.telemetry.taps import sq_sum
 
 Pytree = Any
@@ -146,14 +148,31 @@ class FLStrategy:
         return None
 
     def state_specs(self, params: Pytree, state: dict, mesh) -> dict:
-        """Placement of the state's entries in a mesh round, in the 1-D
-        form: a dict of the state's shape whose value for each entry is
-        ``CLIENT_AXIS`` (its rows are split by rank in the round and
-        all-gathered after it: every client entry) or ``None`` (replicated:
-        every global entry). The reference's 2-D form (PartitionSpecs of
-        the trailing dims over a 'model' axis) comes with the model axis."""
-        return {kind: {name: CLIENT_AXIS if kind == "client" else None
-                       for name in (state.get(kind) or {})}
+        """Mesh placement of the state's entries: a dict of the state's
+        shape holding, for each entry, a spec tree of its *trailing* dims
+        (the reference's form). A param-shaped client entry (the params'
+        structure, and each leaf's trailing shape the param leaf's, whole
+        or as its shard on ``mesh``: a store created sharded) takes the
+        params' :func:`~repro_torch.launch.sharding.fl_param_specs`;
+        every other entry is replicated (``()``). Every client entry's
+        rows are split by client coordinate in the round and
+        all-gathered after it."""
+        pspecs = fl_param_specs(params, mesh)
+        m = 1 if mesh is None else model_mesh_size(mesh)
+        pdef = tree_map(lambda _: None, params)
+        whole = [tuple(l.shape) for l in tree_leaves(params)]
+        shards = [shard_shape(s, spec, m)
+                  for s, spec in zip(whole, tree_leaves(pspecs))]
+
+        def entry_specs(entry, client: bool):
+            if client and tree_map(lambda _: None, entry) == pdef and \
+                    [tuple(l.shape[1:]) for l in tree_leaves(entry)] in (
+                        whole, shards):
+                return pspecs
+            return tree_map(lambda _: (), entry)
+
+        return {kind: {name: entry_specs(e, kind == "client")
+                       for name, e in (state.get(kind) or {}).items()}
                 for kind in ("client", "global")}
 
     def select_with_state(self, state: Optional[dict],

@@ -1,16 +1,26 @@
 """The client mesh on ``torch.distributed``, port of ``repro.launch.mesh``.
 
 The reference runs a mesh as ONE process over D devices: the FL round is a
-``shard_map`` body over the ``'clients'`` axis, and each ``jax.lax``
-collective in it reaches every device. The port runs one process (rank) a
-device. Every rank runs the same program on its own K/D clients, and each
-collective of the reference's body becomes one explicit
-``torch.distributed`` call made by every rank. A :class:`ClientMesh`
-stands in for the reference's ``Mesh``: it holds the rank, the world, the
-device, the backend and the tier groups, and the four collectives the round
-needs (:meth:`~ClientMesh.all_gather_rows`,
-:meth:`~ClientMesh.all_reduce_flat`, :meth:`~ClientMesh.group_all_reduce`,
-:meth:`~ClientMesh.ring_shift`), each with call and byte counters.
+``shard_map`` body over the ``'clients'`` axis (and on a 2-D mesh a
+``'model'`` axis), and each ``jax.lax`` collective in it reaches every
+device of its axis. The port runs one process (rank) a device. Every rank
+runs the same program, and each collective of the reference's body becomes
+one explicit ``torch.distributed`` call made by every rank of the axis. A
+:class:`ClientMesh` stands in for the reference's ``Mesh``: it holds the
+rank, the world, the device, the backend, the process groups of its axes
+and the tier groups, and the collectives the round needs
+(:meth:`~ClientMesh.all_gather_rows`, :meth:`~ClientMesh.all_reduce_flat`,
+:meth:`~ClientMesh.group_all_reduce`, :meth:`~ClientMesh.ring_shift` over
+the clients axis, :meth:`~ClientMesh.all_gather_model` over the model
+axis), each with call and byte counters.
+
+``make_client_mesh(D)`` is the 1-D ``'clients'`` mesh: the round's K
+clients split D ways. ``make_client_mesh(D, model=M)`` folds the D ranks
+into a ``(C = D // M, M)`` grid, rank r at ``(c, m) = (r // M, r % M)``
+(the reference's ``devs.reshape(D // M, M)``): the M ranks of a model row
+(one c) train the same K/C clients, each holding a 1/M shard of every
+parameter leaf and of the EF store (FSDP, :mod:`repro_torch.launch.
+sharding`), and the clients-axis collectives run within a column (one m).
 
 Backends: ``nccl`` when every rank has a card of its own (the default on
 CUDA while the world is no larger than ``torch.cuda.device_count()``),
@@ -25,13 +35,12 @@ The reference's ``replicated_rng`` has no counterpart: the port's draws
 come from keyed CPU generators (``federated/sampling.py``), which give the
 same values on every rank. ``make_production_mesh``, ``make_host_mesh`` and
 ``data_axes`` serve only the reference's XLA dry-run and wait for that
-tooling (ROADMAP Queue 1, item 12); the 2-D ``('clients', 'model')`` mesh
-is the next slice of item 11.
+tooling (ROADMAP Queue 1, item 12).
 
 Multi-process use::
 
     init_distributed("tcp://host0:29500", num_processes=D, process_id=r)
-    flcfg = FLConfig(..., mesh=make_client_mesh())   # every rank
+    flcfg = FLConfig(..., mesh=make_client_mesh(model=M))   # every rank
     params, log = run_training_scan(params, loss_fn, data, flcfg, ...)
 
 :func:`spawn` starts such a world on one host (``torch.multiprocessing``,
@@ -52,9 +61,12 @@ CLIENT_AXIS = "clients"
 MODEL_AXIS = "model"
 
 _OPS = ("all_gather_rows", "all_reduce_flat", "group_all_reduce",
-        "ring_shift")
+        "ring_shift", "all_gather_model")
 # how long a rank waits in a collective for the others
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
+# the process group's timeout, which the mesh's subgroups take too (a new
+# group's own default is torch's 30 minutes)
+_group_timeout = COLLECTIVE_TIMEOUT
 
 
 def _default_backend(world: int) -> str:
@@ -67,7 +79,9 @@ def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None,
                      local_device_ids=None, *,
-                     backend: str | None = None) -> dict:
+                     backend: str | None = None,
+                     timeout: datetime.timedelta = COLLECTIVE_TIMEOUT
+                     ) -> dict:
     """Idempotent ``torch.distributed.init_process_group``.
 
     Call once in every process before :func:`make_client_mesh`.
@@ -78,12 +92,13 @@ def init_distributed(coordinator_address: str | None = None,
     ``nccl`` when CUDA is there and the world fits on the visible cards
     (one rank a card), else ``gloo``. With CUDA the process's card is set
     to ``local_device_ids[0]``, or to ``rank % device_count``. Every
-    collective gives up after ``COLLECTIVE_TIMEOUT``, so a lost rank fails
-    the others instead of hanging them. A process already in a group is
-    left as it is.
+    collective, also of a mesh's subgroups, gives up after ``timeout``
+    (``COLLECTIVE_TIMEOUT``), so a lost rank fails the others instead of
+    hanging them. A process already in a group is left as it is.
 
     Returns ``{"process_id", "process_count", "device_count"}`` (one
     device a process: ``device_count`` is the world's size)."""
+    global _group_timeout
     if not dist.is_initialized():
         if coordinator_address is None and num_processes is None:
             init, world, rank = "env://", None, None
@@ -96,7 +111,8 @@ def init_distributed(coordinator_address: str | None = None,
         backend = backend or _default_backend(world_n)
         kw = {} if world is None else {"world_size": world, "rank": rank}
         dist.init_process_group(backend, init_method=init,
-                                timeout=COLLECTIVE_TIMEOUT, **kw)
+                                timeout=timeout, **kw)
+        _group_timeout = timeout
         if torch.cuda.is_available():
             ids = list(local_device_ids or [])
             torch.cuda.set_device(ids[0] if ids else
@@ -107,20 +123,40 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 class ClientMesh:
-    """A 1-D ``'clients'`` mesh of ``size`` ranks; this process is
-    ``rank`` on ``device``.
+    """A mesh of ``size`` ranks; this process is ``rank`` on ``device``.
+
+    ``model`` 1 is the 1-D ``'clients'`` mesh. ``model`` M > 1 is the
+    ``(size // M, M)`` grid of the 2-D ``('clients', 'model')`` mesh:
+    this rank sits at ``(client_rank, model_rank) = divmod(rank, M)``.
+    ``client_size`` and ``client_rank`` (C and c) say which K/C block of a
+    round's clients the rank trains; ``model_size`` and ``model_rank`` (M
+    and m) which 1/M shard of every sharded leaf it holds. On the 1-D mesh
+    they are ``size``, ``rank``, 1 and 0.
 
     ``backend`` is the process group's (``"nccl"`` or ``"gloo"``), or None
-    for a mesh of one rank without a process group, whose collectives are
-    the identity. Every collective is called by every rank of the mesh in
-    the same order, as the reference's ``shard_map`` body runs on every
-    device. ``counts()`` gives ``{op: (calls, bytes)}`` (bytes this rank
-    contributes) and ``staged`` (ops, bytes copied both ways, seconds)."""
+    for a mesh without a process group, whose collectives are the
+    identity. On the grid every rank creates the C row groups and the M
+    column groups at construction, in that order (``new_group`` is
+    collective). The clients-axis collectives run over this rank's column
+    (the whole world on the 1-D mesh; none at C = 1, where they are the
+    identity), :meth:`all_gather_model` over its row. Every collective is
+    called by every rank of its group in the same order, as the
+    reference's ``shard_map`` body runs on every device. ``counts()``
+    gives ``{op: (calls, bytes)}`` (bytes this rank contributes) and
+    ``staged`` (ops, bytes copied both ways, seconds)."""
 
-    axis_names = (CLIENT_AXIS,)
-
-    def __init__(self, size: int, rank: int, device, backend: Optional[str]):
+    def __init__(self, size: int, rank: int, device, backend: Optional[str],
+                 model: int = 1):
         self.size, self.rank = int(size), int(rank)
+        self.model_size = max(int(model), 1)
+        if self.size % self.model_size:
+            raise ValueError(f"ClientMesh: model={model} must divide the "
+                             f"size {size}")
+        self.client_size = self.size // self.model_size
+        self.client_rank, self.model_rank = divmod(self.rank,
+                                                   self.model_size)
+        self.axis_names = ((CLIENT_AXIS,) if self.model_size == 1
+                           else (CLIENT_AXIS, MODEL_AXIS))
         self.device = torch.device(device)
         self.backend = backend
         # gloo reads and writes host memory: a CUDA payload goes through
@@ -128,15 +164,44 @@ class ClientMesh:
         self.stage = backend == "gloo" and self.device.type == "cuda"
         self._tiers: dict[int, object] = {}
         self._host: Optional[torch.Tensor] = None
+        # the clients axis: the world (group None) on the 1-D mesh, this
+        # rank's column on the grid; no collective at all along an axis of
+        # one rank
+        self._col = self._row = None
+        self._col_solo = backend is None or (self.model_size > 1
+                                             and self.client_size == 1)
+        self._row_solo = backend is None or self.model_size == 1
+        if backend is not None and self.model_size > 1:
+            c_, m_ = self.client_size, self.model_size
+            for c in range(c_):
+                pg = self._new_group([c * m_ + j for j in range(m_)])
+                if c == self.client_rank:
+                    self._row = pg
+            for j in range(m_):
+                pg = self._new_group([c * m_ + j for c in range(c_)])
+                if j == self.model_rank:
+                    self._col = pg
         self.reset_counts()
+
+    def _new_group(self, ranks: list[int]):
+        return dist.new_group(ranks, backend=self.backend,
+                              timeout=_group_timeout)
+
+    def _world_rank(self, client_rank: int) -> int:
+        """The world rank at ``(client_rank, model_rank)``: this rank's
+        column."""
+        return client_rank * self.model_size + self.model_rank
 
     @property
     def shape(self) -> dict:
-        return {CLIENT_AXIS: self.size}
+        if self.model_size == 1:
+            return {CLIENT_AXIS: self.client_size}
+        return {CLIENT_AXIS: self.client_size, MODEL_AXIS: self.model_size}
 
     def __repr__(self):
         return (f"ClientMesh(size={self.size}, rank={self.rank}, "
-                f"device={self.device}, backend={self.backend})")
+                f"model={self.model_size}, device={self.device}, "
+                f"backend={self.backend})")
 
     # ---- counters ----------------------------------------------------
     def reset_counts(self) -> None:
@@ -188,36 +253,40 @@ class ClientMesh:
 
     # ---- collectives -------------------------------------------------
     def all_reduce_flat(self, buf: torch.Tensor) -> torch.Tensor:
-        """Σ over the mesh of ``buf`` (any shape), in place; returns it."""
+        """Σ over the clients axis of ``buf`` (any shape), in place;
+        returns it."""
         self._note("all_reduce_flat", buf)
-        return self._all_reduce(buf, None)
+        if self._col_solo:
+            return buf
+        return self._all_reduce(buf, self._col)
 
     def tier_group(self, group_size: int):
         """The process group of this rank's block of ``group_size``
-        consecutive ranks. ``new_group`` is collective: every rank creates
-        every block's group, in order, the first time a size is asked."""
+        consecutive client coordinates within its column. ``new_group``
+        is collective: every rank creates every column's blocks' groups,
+        in order, the first time a size is asked."""
         if group_size not in self._tiers:
             mine = None
-            for g in range(self.size // group_size):
-                ranks = list(range(g * group_size, (g + 1) * group_size))
-                pg = dist.new_group(ranks, backend=self.backend)
-                if self.rank in ranks:
-                    mine = pg
+            for j in range(self.model_size):
+                for g in range(self.client_size // group_size):
+                    ranks = [(g * group_size + i) * self.model_size + j
+                             for i in range(group_size)]
+                    pg = self._new_group(ranks)
+                    if self.rank in ranks:
+                        mine = pg
             self._tiers[group_size] = mine
         return self._tiers[group_size]
 
     def group_all_reduce(self, buf: torch.Tensor,
                          group_size: int) -> torch.Tensor:
         """Σ of ``buf`` over this rank's block of ``group_size``
-        consecutive ranks, in place (the tier-1 reduce)."""
+        consecutive client coordinates, in place (the tier-1 reduce)."""
         self._note("group_all_reduce", buf)
-        if self.backend is None or group_size == 1:
+        if self._col_solo or group_size == 1:
             return buf
         return self._all_reduce(buf, self.tier_group(group_size))
 
     def _all_reduce(self, buf: torch.Tensor, group) -> torch.Tensor:
-        if self.backend is None:
-            return buf
         if not self.stage:
             dist.all_reduce(buf, group=group)
             return buf
@@ -228,14 +297,16 @@ class ClientMesh:
         return buf
 
     def ring_shift(self, buf: torch.Tensor, shift: int) -> torch.Tensor:
-        """The ``buf`` of rank ``rank - shift`` (mod size), a new tensor:
-        every rank sends its ``buf`` ``shift`` ranks on (the reference's
-        ``ppermute`` rotation, one ``batch_isend_irecv``)."""
+        """The ``buf`` of client coordinate ``client_rank - shift`` (mod
+        C) in this rank's column, a new tensor: every rank sends its
+        ``buf`` ``shift`` coordinates on (the reference's ``ppermute``
+        rotation, one ``batch_isend_irecv``)."""
         self._note("ring_shift", buf)
-        if self.backend is None or shift % self.size == 0:
+        c_ = self.client_size
+        if self._col_solo or shift % c_ == 0:
             return buf.clone()
-        dst, src = ((self.rank + shift) % self.size,
-                    (self.rank - shift) % self.size)
+        dst = self._world_rank((self.client_rank + shift) % c_)
+        src = self._world_rank((self.client_rank - shift) % c_)
         out = torch.empty_like(buf)
         if self.stage:
             h_in, h_out = self._host_views((buf.shape, buf.dtype),
@@ -256,31 +327,47 @@ class ClientMesh:
             r.wait()
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """The ranks' ``x`` (R, ...) stacked in rank order: (size·R, ...)
-        (the reference's ``all_gather(..., tiled=True)``)."""
+        """The column's ``x`` (R, ...) stacked in client-coordinate order:
+        (C·R, ...) (the reference's ``all_gather(..., 'clients',
+        tiled=True)``)."""
         self._note("all_gather_rows", x)
-        if self.backend is None:
+        if self._col_solo:
             return x
+        return self._all_gather(x, self.client_size, self._col)
+
+    def all_gather_model(self, buf: torch.Tensor) -> torch.Tensor:
+        """The row's 1-D ``buf`` (n,) stacked in model-coordinate order:
+        (M, n) (the reference's ``all_gather`` over ``'model'``, which
+        :func:`repro_torch.launch.sharding.tree_all_gather` cuts into
+        leaves)."""
+        self._note("all_gather_model", buf)
+        if self._row_solo:
+            return buf.reshape(1, -1)
+        return self._all_gather(buf.reshape(1, -1), self.model_size,
+                                self._row)
+
+    def _all_gather(self, x: torch.Tensor, n: int, group) -> torch.Tensor:
         x = x.contiguous()
-        shape = (self.size * x.shape[0],) + tuple(x.shape[1:])
+        shape = (n * x.shape[0],) + tuple(x.shape[1:])
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
         if self.stage:
             h_in, h_out = self._host_views((x.shape, x.dtype),
                                            (shape, x.dtype))
             self._to_host(h_in, x)
-            dist.all_gather(list(h_out.chunk(self.size)), h_in)
+            dist.all_gather(list(h_out.chunk(n)), h_in, group=group)
             self._from_host(out, h_out)
         else:
-            dist.all_gather(list(out.chunk(self.size)), x)
+            dist.all_gather(list(out.chunk(n)), x, group=group)
         return out
 
 
 def make_client_mesh(num_devices: int | None = None, model: int = 1,
                      processes: int | None = None,
                      device="cuda") -> ClientMesh:
-    """The 1-D ``'clients'`` mesh of the FL round engine
-    (``FLConfig(mesh=...)``): the round's K clients split D ways, one rank
-    a device.
+    """The mesh of the FL round engine (``FLConfig(mesh=...)``), one rank
+    a device: the 1-D ``'clients'`` mesh, or with ``model`` M > 1 the 2-D
+    ``('clients', 'model')`` grid of ``(D // M, M)`` ranks (see
+    :class:`ClientMesh`); M must divide D.
 
     ``num_devices`` None is every rank of the process group (a world of 1
     without one). Inside a group, ``num_devices`` must be the world's size
@@ -289,16 +376,7 @@ def make_client_mesh(num_devices: int | None = None, model: int = 1,
     checks the world's size, as the reference's checks
     ``jax.process_count()``. ``device`` ``"cuda"`` is this process's card
     (``torch.cuda.current_device()``, which :func:`init_distributed`
-    sets); ``"cpu"`` runs the mesh on the host under ``gloo``.
-
-    ``model > 1`` (the reference's 2-D ``('clients', 'model')`` mesh, FSDP
-    of the params and the EF store) is the next slice of the port."""
-    if model > 1:
-        raise NotImplementedError(
-            f"make_client_mesh: model={model} (the 2-D ('clients', 'model') "
-            "mesh, FSDP of the params and the EF residual store) is not "
-            "ported yet; it is the next slice of the port (ROADMAP Queue 1, "
-            "item 11). Use model=1")
+    sets); ``"cpu"`` runs the mesh on the host under ``gloo``."""
     grouped = dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
     n = world if num_devices is None else int(num_devices)
@@ -316,12 +394,17 @@ def make_client_mesh(num_devices: int | None = None, model: int = 1,
         raise ValueError(
             f"make_client_mesh: a mesh of {n} of the group's {world} ranks "
             "is not supported; start a group of that many processes")
+    model = max(int(model), 1)
+    if n % model:
+        raise ValueError(
+            f"make_client_mesh: model={model} must divide the total device "
+            f"count {n} (mesh shape is (clients={n}//{model}, model={model}))")
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if grouped and n == world:
         return ClientMesh(world, dist.get_rank(), device,
-                          dist.get_backend())
+                          dist.get_backend(), model=model)
     return ClientMesh(1, 0, device, None)
 
 
@@ -335,8 +418,8 @@ def client_mesh_size(mesh) -> int:
 
 
 def model_mesh_size(mesh) -> int:
-    """Ranks on the ``'model'`` axis: 1, as every mesh of the port is 1-D
-    (params and the EF store replicated on every rank)."""
+    """Ranks on the ``'model'`` axis; 1 when the mesh has no such axis
+    (1-D client meshes keep params fully replicated)."""
     if MODEL_AXIS not in mesh.axis_names:
         return 1
     return int(mesh.shape[MODEL_AXIS])
@@ -346,10 +429,10 @@ def model_mesh_size(mesh) -> int:
 # a world of ranks on one host
 # ----------------------------------------------------------------------
 def _rank_main(rank: int, world: int, store: str, backend: Optional[str],
-               out_dir: str) -> None:
+               out_dir: str, timeout: datetime.timedelta) -> None:
     fn, args = torch.load(os.path.join(out_dir, "call.pt"),
                           weights_only=False)
-    init_distributed(store, world, rank, backend=backend)
+    init_distributed(store, world, rank, backend=backend, timeout=timeout)
     try:
         result = fn(rank, *args)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -359,7 +442,8 @@ def _rank_main(rank: int, world: int, store: str, backend: Optional[str],
 
 def spawn(fn: Callable, world: int, args: tuple = (), *,
           backend: Optional[str] = None,
-          store_dir: Optional[str] = None) -> list:
+          store_dir: Optional[str] = None,
+          timeout: datetime.timedelta = COLLECTIVE_TIMEOUT) -> list:
     """Run ``fn(rank, *args)`` in ``world`` new processes, each a rank of
     one process group, and return their results in rank order.
 
@@ -374,13 +458,13 @@ def spawn(fn: Callable, world: int, args: tuple = (), *,
     pick, no clash between worlds started side by side. ``backend`` None
     follows :func:`init_distributed`'s rule. A rank that raises fails the
     call (``torch.multiprocessing.ProcessRaisedException``); a rank left
-    waiting on a collective gives up after ``COLLECTIVE_TIMEOUT``. The
-    results come back through ``torch.save`` files."""
+    waiting on a collective gives up after ``timeout``. The results come
+    back through ``torch.save`` files."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         torch.save((fn, tuple(args)), os.path.join(tmp, "call.pt"))
         store = "file://" + os.path.join(tmp, "store")
-        mp.spawn(_rank_main, args=(world, store, backend, tmp),
+        mp.spawn(_rank_main, args=(world, store, backend, tmp, timeout),
                  nprocs=world, join=True)
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                            weights_only=False) for r in range(world)]

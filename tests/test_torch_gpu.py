@@ -17,7 +17,9 @@ telemetry (a telemetry-on round and the engine's ledger against the CPU,
 a telemetry-on block without a host sync, ``device_memory_peak``), and
 the client mesh (a world of 2 gloo ranks on the card: its collectives
 staged through pinned host memory, and the engine on the mesh against
-the engine on one device).
+the engine on one device), and the 2-D mesh (a 1 × 2 grid of 2 gloo
+ranks: the bytes at rest a rank, and the engine against the 1-rank
+mesh).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1671,3 +1673,49 @@ def test_cuda_mesh_gloo_world_stages_and_matches_one_device(cuda, tmp_path):
             if comp is not None:
                 want["fused_uplink_ef"] = 2
             assert run["launches"] == want
+
+
+# ----------------------------------------------------------------------
+# the 2-D ('clients', 'model') mesh: a 1 x 2 grid of 2 gloo ranks
+# ----------------------------------------------------------------------
+def test_cuda_grid_1x2_halves_the_bytes_at_rest_and_matches_one_rank(
+        cuda, tmp_path):
+    """A 1 × 2 grid of 2 gloo ranks on the card, the MLP of
+    ``tests/test_model_axis.py`` at N = 8: a rank's params and EF store at
+    rest (``torch.cuda.memory_allocated`` deltas, which round every tensor
+    up to 512 B) are half the 1-rank mesh's but for the replicated 1-D
+    leaves; setting A (int8 + EF) through the engine gives the 1-rank
+    mesh's bits (C = 1: gather and slice only move data), every rank the
+    same, 1 ``sqdiff_rowsum`` and 1 ``fused_uplink_ef`` a rank a round."""
+    import torch_model_axis_worker as wg
+    from repro_torch.launch.mesh import spawn
+    train, _ = make_image_dataset(num_train=320, num_test=16, seed=1)
+    parts = iid_partition(train.ys, wg.N, seed=0)
+    g = torch.Generator().manual_seed(0)
+    params = {"l1": {"w": torch.randn(3072, 16, generator=g) * 0.02,
+                     "b": torch.zeros(16)},
+              "head": {"w": torch.randn(16, 10, generator=g) * 0.1,
+                       "b": torch.zeros(10)}}
+    task = {"params": {k: {n: v.numpy() for n, v in d.items()}
+                       for k, d in params.items()},
+            "xs": train.xs, "ys": train.ys, "parts": parts}
+    ranks = spawn(wg.card_grid, 2, (task,), backend="gloo",
+                  store_dir=str(tmp_path))
+
+    def rounded(n):
+        return -(-n // 512) * 512
+    # the replicated 1-D leaves: the params' biases and the store's rows
+    rep = (rounded(16 * 4) + rounded(10 * 4),
+           rounded(wg.N * 16 * 4) + rounded(wg.N * 10 * 4))
+    for res in ranks:
+        assert res["shape"] == {"clients": 1, "model": 2} and res["stage"]
+        for grid_b, one_b, rep_b in zip(res["grid"], res["one"], rep):
+            assert grid_b == (one_b - rep_b) // 2 + rep_b
+        run, one = res["grid_run"], res["one_run"]
+        assert run["losses"] == one["losses"]
+        assert run["uplink"] == one["uplink"]
+        for a, b in zip(tree_leaves(run["params"]),
+                        tree_leaves(ranks[0]["one_run"]["params"])):
+            np.testing.assert_array_equal(a, b)
+        assert run["launches"] == {"sqdiff_rowsum": 2, "fused_uplink_ef": 2}
+        assert run["state"]["residual"]["l1"]["w"].shape == (wg.N, 1536, 16)

@@ -258,8 +258,10 @@ def test_make_client_mesh_errors():
         tmesh.make_client_mesh(0, device="cpu")
     with pytest.raises(ValueError, match="process"):
         tmesh.make_client_mesh(processes=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tmesh.make_client_mesh(2, model=2, device="cpu")
+    with pytest.raises(ValueError, match="asked for 4 devices, have 1"):
+        tmesh.make_client_mesh(4, model=2, device="cpu")
+    with pytest.raises(ValueError, match="model=2 must divide"):
+        tmesh.make_client_mesh(model=2, device="cpu")
     m = tmesh.make_client_mesh(device="cpu")
     assert (m.size, m.rank, m.backend, m.stage) == (1, 0, None, False)
     assert tmesh.client_mesh_size(m) == 1 and tmesh.model_mesh_size(m) == 1
@@ -399,10 +401,21 @@ def test_fedadp_psum_halves_match_reference():
 def test_state_specs_split_client_rows_and_replicate_globals():
     from repro_torch.federated import make_strategy
     fl = _base(TFLConfig)
-    st = {"client": {"residual": {}}, "global": {"ttl": torch.zeros(3)}}
-    specs = make_strategy(fl).state_specs({}, st, None)
-    assert specs == {"client": {"residual": "clients"},
-                     "global": {"ttl": None}}
+    params = {"w": torch.zeros(4, 6), "b": torch.zeros(6)}
+    st = {"client": {"residual": {"w": torch.zeros(5, 4, 6),
+                                  "b": torch.zeros(5, 6)}},
+          "global": {"ttl": torch.zeros(3)}}
+    strategy = make_strategy(fl)
+    # off a 2-D mesh every entry is replicated (every client entry's rows
+    # are split by client coordinate in the round all the same)
+    assert strategy.state_specs(params, st, None) == {
+        "client": {"residual": {"w": (), "b": ()}}, "global": {"ttl": ()}}
+    # on a 2-D mesh the param-shaped client entry takes the params' specs
+    grid = type("Grid", (), {"axis_names": ("clients", "model"),
+                             "shape": {"clients": 2, "model": 2}})()
+    assert strategy.state_specs(params, st, grid) == {
+        "client": {"residual": {"w": (None, "model"), "b": ()}},
+        "global": {"ttl": ()}}
 
 
 # ----------------------------------------------------------------------
