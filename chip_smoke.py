@@ -211,7 +211,27 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    rest a rank (params and the N = 50 store; exact, and the allocator's
    deltas), the ledger's tier bytes (the reference's ``agg_tier_bytes``
    at 1/M of the model), and each grid's round wall-clock (median of 3
-   1-round blocks), peak rise and collectives a round.
+   1-round blocks), peak rise and collectives a round;
+19. the dry-run tooling (``repro_torch.launch``: ``shapes``, ``opcount``,
+   ``dryrun``, ``roofline``, ``inspect``) counts two programs on the
+   ``meta`` device, with no time taken again: (a) phase 10's bf16
+   prefill of qwen3-1.7b (batch 4, prompt 2048), whose argument bytes
+   must equal the params and prompt phase 10 allocated, exactly, and
+   whose counted FLOPs must equal the plain prefill's matmuls, exactly;
+   it prints first the counted share of phase 10's measured prefill
+   (counted FLOPs / (s x 989e12): the matmuls this prefill does), then
+   ``model_flops_for``, ``useful_flops_ratio`` (above 1 for a prefill:
+   ``model_flops_for`` counts the embedding and the head at every
+   position), the ``mfu`` (``model_flops_for`` / (s x 989e12), which
+   counts that work too), ``t_compute``, ``t_memory`` and the measured
+   time over max(``t_compute``, ``t_memory``), all three of the plain
+   program (its attention writes every pair's f32 scores, which the
+   card's kernel never does: no share of the card's roofline), and the
+   top 5 FLOP ops;
+   (b) phase 4's vmap FedLDF round of full-width VGG-9 at the paper's
+   setup, whose argument bytes must equal phase 4's exactly; it prints
+   the counted conv/matmul FLOPs a round and their share of the f32 rate
+   (67e12) at phase 8's measured round time.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -287,11 +307,6 @@ TC_CASES = [(64, 33, 65, 65, False, 0), (128, 40, 40, 40, True, 0),
 SERVE_ARCH = "qwen3-1.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32   # 32 decode steps
 SERVE_RTOL = 1e-3           # of max |logit|
-# H100 SXM data sheet: HBM rate, the f32 rate outside the tensor cores and
-# the dense bf16 tensor-core rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 # phase 13: federated LoRA fine-tuning of full-width qwen3-1.7b
 LORA_ARCH = "qwen3-1.7b"
 LORA_RANK, LORA_SEED = 8, 1          # inject_lora rank and generator seed
@@ -1122,6 +1137,116 @@ def phase18(ctx):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 19: the dry-run's counts of two programs the earlier phases timed
+# ----------------------------------------------------------------------
+def phase19(ctx):
+    """Count phase 10's bf16 prefill of qwen3-1.7b and phase 4's vmap
+    FedLDF round of full-width VGG-9 with the dry-run's programs on the
+    ``meta`` device (``repro_torch.launch``: ``shapes``, ``opcount``,
+    ``dryrun``, ``roofline``, ``inspect``), hold their argument bytes to
+    the bytes the earlier phases allocated on the card, exactly, and set
+    the counts against the times those phases measured (nothing is timed
+    again). ``ctx`` holds main()'s names it reads."""
+    import torch
+    from repro_torch.core.units import UnitMap
+    from repro_torch.federated import build_round_vmap
+    from repro_torch.launch import dryrun, opcount
+    from repro_torch.launch import inspect as dr_inspect
+    from repro_torch.launch import shapes as dr_shapes
+    from repro_torch.launch.roofline import F32_FLOPS, PEAK_FLOPS
+    from repro_torch.models import cnn
+    t19 = time.perf_counter()
+    smi = ctx["smi"]
+    meta = torch.device("meta")
+
+    # (a) phase 10's prefill: params built on meta by the program, the
+    # prompt at phase 10's own shape and dtype (int64 from numpy; the
+    # program's own tokens are the reference's int32)
+    cfg, (b, s) = ctx["serve_cfg"], ctx["serve_prompt_shape"]
+    shape = dr_shapes.ShapeSpec("serve_prefill", "prefill", s, b)
+    prog = dr_shapes.build_program(cfg, shape)
+    prog.args = (prog.args[0], torch.empty(
+        (b, s), dtype=ctx["serve_prompt_dtype"], device=meta))
+    roof, totals = dryrun.count(cfg, shape, program=prog, arch=cfg.name)
+    want = ctx["serve_arg_bytes"]
+    got = roof.memory_per_device["argument_size_in_bytes"]
+    say(f"[dryrun] {cfg.name} bf16 prefill, batch {b}, prompt {s}, counted "
+        f"on meta: argument bytes {got:.0f} (phase 10 allocated {want} on "
+        f"the card: params and prompt); {len(totals.records)} ops, peak "
+        f"live {totals.peak_bytes:.0f} B")
+    if got != want:
+        fail(f"dry-run prefill: argument bytes {got:.0f}, phase 10 "
+             f"allocated {want}")
+    # the plain prefill's matmuls: the projections and the MLP at every
+    # position, the attention over every (query, key) pair of the masked
+    # block (masked, not skipped), the head at the last position only
+    t, d, hd = b * s, cfg.d_model, cfg.hd
+    qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    want_flops = (cfg.num_layers * (2 * t * d * (2 * qd + 2 * kvd)
+                                    + 6 * t * d * cfg.d_ff
+                                    + 4 * b * cfg.num_heads * s * s * hd)
+                  + 2 * b * d * cfg.vocab_size)
+    pre_s = ctx["serve_pre_ms"] / 1e3
+    ratio, bound_s = roof.useful_ratio, max(roof.t_compute, roof.t_memory)
+    mfu = roof.model_flops / (pre_s * PEAK_FLOPS)
+    hfu = roof.flops_per_device / (pre_s * PEAK_FLOPS)
+    say(f"[dryrun] prefill: measured {pre_s * 1e3:.3f} ms (phase 10, "
+        f"median of 3): counted share {hfu:.4f} (counted FLOPs "
+        f"{roof.flops_per_device:.6e}, analytic {want_flops:.6e}, / (s x "
+        f"{PEAK_FLOPS:.3e})); model_flops_for {roof.model_flops:.6e}, "
+        f"useful_flops_ratio {ratio:.6f} (above 1: model_flops_for's 2·N a "
+        f"token counts the embedding, a gather, and the head, which a "
+        f"prefill runs at the last position only), mfu {mfu:.4f} "
+        f"(model_flops_for / (s x peak)); of the plain program, not the "
+        f"kernel path: t_compute {roof.t_compute * 1e3:.4f} ms, t_memory "
+        f"{roof.t_memory * 1e3:.4f} ms (counted bytes "
+        f"{roof.bytes_per_device:.6e}, every pair's f32 scores in HBM), "
+        f"measured / max(t_compute, t_memory) {pre_s / bound_s:.4f} "
+        f"({smi})")
+    say("[dryrun] prefill top FLOP ops (FLOPs, times run, source): " +
+        "; ".join(f"{f:.4e} x{n} {src}"
+                  for f, n, _, src in dr_inspect.top_flops(totals, 5)))
+    if roof.flops_per_device != want_flops:
+        fail(f"dry-run prefill: counted {roof.flops_per_device:.6e} FLOPs, "
+             f"the plain prefill's matmuls are {want_flops:.6e}")
+    if not ratio > 0 or not 0 < mfu < 1 or not 0 < hfu < 1:
+        fail(f"dry-run prefill: useful_flops_ratio {ratio}, mfu {mfu}, "
+             f"counted FLOPs / (s x peak) {hfu}")
+
+    # (b) phase 4's vmap round of full-width VGG-9 at the paper's setup
+    vcfg, fl = ctx["vgg_cfg"], ctx["fl_v"]
+    k, bb, hw = fl.clients_per_round, fl.batch_per_client, vcfg.image_size
+    params = cnn.init_params(vcfg, None, meta)
+    batch = {"images": torch.empty((k, bb, hw, hw, vcfg.in_channels),
+                                   device=meta),
+             "labels": torch.empty((k, bb), dtype=torch.int32, device=meta)}
+    sizes = torch.empty((k,), device=meta)
+    round_fn = build_round_vmap(
+        lambda p, bt: cnn.classify_loss(p, vcfg, bt), UnitMap.build(params),
+        fl)
+    vt = opcount.analyze(round_fn, params, batch, sizes)
+    want = ctx["vgg_arg_bytes"]
+    round_s = ctx["rv_ms"] / 1e3
+    share = vt.flops / (round_s * F32_FLOPS)
+    say(f"[dryrun] {vcfg.name} vmap fedldf round (N={fl.num_clients}, "
+        f"K={k}, n={fl.top_n}, B={bb}), counted on meta: argument bytes "
+        f"{vt.argument_bytes:.0f} (phase 4 allocated {want}); "
+        f"{len(vt.records)} ops; conv/matmul FLOPs a round "
+        f"{vt.flops:.6e}, bytes {vt.hbm_bytes:.6e}; measured round "
+        f"{round_s * 1e3:.3f} ms (phase 8, median of 3): share of "
+        f"F32_FLOPS {share:.5f} (FLOPs / (s x {F32_FLOPS:.3e})) ({smi})")
+    say("[dryrun] round top FLOP ops: " + "; ".join(
+        f"{f:.4e} x{n} {src}" for f, n, _, src in
+        dr_inspect.top_flops(vt, 5)))
+    if vt.argument_bytes != want:
+        fail(f"dry-run round: argument bytes {vt.argument_bytes:.0f}, "
+             f"phase 4 allocated {want}")
+    if not vt.flops > 0 or not 0 < share < 1:
+        fail(f"dry-run round: FLOPs {vt.flops}, share {share}")
+    say(f"[dryrun] phase 19: {time.perf_counter() - t19:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1152,6 +1277,11 @@ def main():
                                      flash_attention, ops, uplink)
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import serve
+    # H100 SXM data sheet: HBM rate, the f32 rate outside the tensor cores
+    # and the dense bf16 tensor-core rate (one source: launch/roofline.py)
+    from repro_torch.launch.roofline import F32_FLOPS
+    from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS
     from repro_torch.models import decode as dec
     from repro_torch.models import transformer as tf
     from repro_torch.models.cnn import accuracy, classify_loss, init_params
@@ -2174,6 +2304,9 @@ def main():
         return statistics.median(out)
 
     rv_ms, rs_ms = round_ms(round_v), round_ms(round_s)
+    # what phase 19 holds the dry-run's count of the vmap round to
+    vgg_arg_bytes = (sum(nb(t) for t in tree_leaves(params0))
+                     + sum(nb(t) for t in batch.values()) + nb(sizes))
     ra_ms, rb_ms = round_ms(round_a, rows_a), round_ms(round_b)
     sq_per_round_v = counts_v["sqdiff_rowsum"] // ROUNDS
     sq_per_round_s = counts_s["sqdiff_rowsum"] // ROUNDS
@@ -2476,6 +2609,12 @@ def main():
             f"untimed) host_enqueue_ms={k_host:.4f}")
     say(f"[times] serving bf16, median of 3: prefill {pre_ms:.3f} ms, "
         f"decode {tok_ms:.3f} ms/token ({smi})")
+    # what phase 19 holds the dry-run's count of this prefill to
+    serve_19 = {"serve_cfg": cfg_bf, "serve_pre_ms": pre_ms,
+                "serve_prompt_shape": tuple(prompts.shape),
+                "serve_prompt_dtype": prompts.dtype,
+                "serve_arg_bytes": sum(nb(t) for t in tree_leaves(params))
+                + nb(prompts)}
     del params
     torch.cuda.empty_cache()
     say("[cli] python -m repro_torch.launch.serve --arch qwen3-1.7b "
@@ -4134,6 +4273,10 @@ def main():
                          "per_round_up": per_round_up,
                          "want_uplink_a": WANT_UPLINK[8]})
     del data_e, train_e
+
+    # ---- 19. the dry-run's counts of the prefill and the round ----------
+    phase19({**serve_19, "smi": smi, "vgg_cfg": vgg9.config(),
+             "fl_v": fl_v, "vgg_arg_bytes": vgg_arg_bytes, "rv_ms": rv_ms})
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

@@ -33,9 +33,13 @@ CUDA op that failed.
 
 The reference's ``replicated_rng`` has no counterpart: the port's draws
 come from keyed CPU generators (``federated/sampling.py``), which give the
-same values on every rank. ``make_production_mesh``, ``make_host_mesh`` and
-``data_axes`` serve only the reference's XLA dry-run and wait for that
-tooling (ROADMAP Queue 1, item 12).
+same values on every rank. Nor has ``shard_map_norep``: the port runs no
+``shard_map``; each rank runs its share of the round as plain code.
+
+:func:`make_production_mesh` and :func:`make_host_mesh` build shape-only
+meshes (:class:`ShapeMesh`: ``.shape`` and ``.axis_names``, no process
+group, no device): the port has no SPMD partitioner, so they serve the
+sharding specs of the dry-run (:mod:`repro_torch.launch.dryrun`) alone.
 
 Multi-process use::
 
@@ -67,6 +71,43 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 # the process group's timeout, which the mesh's subgroups take too (a new
 # group's own default is torch's 30 minutes)
 _group_timeout = COLLECTIVE_TIMEOUT
+
+
+class ShapeMesh:
+    """A mesh by its shape only: ``shape`` (axis -> size, in order) and
+    ``axis_names``. It joins no process group and holds no device; the
+    sharding specs (:mod:`repro_torch.launch.sharding`) read nothing
+    else."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+    def __repr__(self):
+        return f"ShapeMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """The production mesh on H100s, for the same chip counts as the
+    reference's TPU v5e pods: ``(data=32, model=8)``, 256 cards, or with
+    ``multi_pod`` ``(pod=2, data=32, model=8)``, 512 cards; the 'pod' axis
+    joins the data/FSDP product. 'model' (tensor parallelism) stays inside
+    one 8-GPU NVLink node: the reference's ``(16, 16)`` is a v5e pod's
+    torus, and 16-way tensor parallelism on H100s would cross onto the
+    network between nodes."""
+    if multi_pod:
+        return ShapeMesh({"pod": 2, "data": 32, MODEL_AXIS: 8})
+    return ShapeMesh({"data": 32, MODEL_AXIS: 8})
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """Axes forming the batch/FSDP product ('pod' included when present)."""
+    return tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+
+
+def make_host_mesh(data: int = 2, model: int = 2) -> ShapeMesh:
+    """A small ``(data, model)`` mesh for CI-scale sharding tests."""
+    return ShapeMesh({"data": int(data), MODEL_AXIS: int(model)})
 
 
 def _default_backend(world: int) -> str:

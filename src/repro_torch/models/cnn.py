@@ -54,8 +54,11 @@ def init_params(cfg: VGGConfig, generator: torch.Generator,
     """He-normal conv weights and 1/fan_in fc weights, drawn on the CPU from
     ``generator`` (so a seed gives the same weights on every device) and
     moved to ``device``. The numbers differ from the reference's
-    ``jax.random`` draws; parity tests carry weights across instead."""
+    ``jax.random`` draws; parity tests carry weights across instead. On the
+    ``meta`` device nothing is drawn (``generator`` may be None)."""
     def normal(shape, std):
+        if torch.device(device).type == "meta":
+            return torch.empty(shape, device="meta")
         return (torch.randn(shape, generator=generator, dtype=torch.float32)
                 * std).to(device)
 

@@ -23,7 +23,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
 
 
 def _normal(generator: torch.Generator, shape, std: float, dtype, device):
-    """N(0, std²) drawn on the generator's device, then moved and cast."""
+    """N(0, std²) drawn on the generator's device, then moved and cast. On
+    the ``meta`` device nothing is drawn (and ``generator`` may be None):
+    the result has the shape and dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device)
     return (x * std).to(device=device, dtype=dtype)
 
