@@ -135,9 +135,9 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    model: 24 non-causal encoder blocks over the frames, 24 decoder blocks
    of causal self-attention, cross-attention to the encoder's output and
    an MLP; 16 query over 16 KV heads at hd 64), random weights from seed
-   0, batch 4, a 2048-token prompt, 2048 frames (f32, drawn after the
-   prompts from the same numpy generator, as the serve launcher draws
-   them) and 32 greedy decode steps; the parameter tree's params, bytes
+   0, batch 4, a 2048-token prompt, 2048 frames (drawn after the prompts
+   from the same numpy generator, as the serve launcher draws them, and
+   given to each run in its compute dtype) and 32 greedy decode steps; the parameter tree's params, bytes
    and leaves and the cache's bytes (self and cross K/V) asserted; in f32
    (TF32 off) at full depth the prefill and decode logits within 1e-3 of
    max |logit| of ``forward`` over the same tokens and frames and of the
@@ -231,7 +231,29 @@ Phases (each one fails the run if it fails; nothing falls back to the CPU):
    (b) phase 4's vmap FedLDF round of full-width VGG-9 at the paper's
    setup, whose argument bytes must equal phase 4's exactly; it prints
    the counted conv/matmul FLOPs a round and their share of the f32 rate
-   (67e12) at phase 8's measured round time.
+   (67e12) at phase 8's measured round time;
+20. the six port examples (``examples/*_torch.py``): (a) each one's
+   ``main(argv)`` in this process (quickstart ``--rounds 3``; compressed
+   ``--bits 8``, ``--bits auto`` and ``--bits 4 --no-error-feedback``;
+   custom_strategy; fedlama ``--rounds 4``; ``fl_cifar_vgg
+   --paper-scale --rounds 2 --algos fedldf,fedavg``, its uplink exactly
+   150,712,032 B and 753,552,960 B; serve_llm ``--rounds 2``), each
+   run's launches exact by counter and none of the kernels' plain
+   versions called, then ``examples/quickstart_torch.py`` as a script
+   with ``PYTHONPATH=src``; (b) serve_llm's path at full width and depth
+   in f32 through the example's own functions: mamba2-780m and
+   hymba-1.5b from seed 0, 2 scan-mode rounds of every parameter (6
+   clients, K=3, top-n 1, B=4, 48-token sequences): finite losses, the
+   uplink the f32 of ``model + K·U·4`` bytes a round, 3
+   ``sqdiff_rowsum`` and 3 ``masked_accumulate`` a round, hymba's 32
+   flash launches a local step on ``route()``'s f32 route, the first
+   local step's calls held against the plain attention at 1e-4; then 4
+   prompts of 16 tokens and 12 greedy steps, every step's logits within
+   1e-3 of max |logit| of ``forward`` and hymba's every flash call held
+   against the plain attention; the reckoned f32 footprint beside the
+   peak, the wall-clock of a warm 1-round ``run_training`` call (set-up
+   included) and a profiled one's device busy time and idle share under
+   ``torch.profiler``.
 
 Flash attention has three routes (``kernels/flash_attention.py:route``):
 the tensor-core prefill (``flash_attention_tc.cu``), the split-KV decode
@@ -1247,8 +1269,317 @@ def phase19(ctx):
     say(f"[dryrun] phase 19: {time.perf_counter() - t19:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# phase 20: the six port examples, then serve_llm's path at full width
+# ----------------------------------------------------------------------
+# (example, argv, the launches its main makes, by counter; every other
+# counter 0). quickstart: 1 Eq. 3 call for its step-by-step round, 1 a
+# vmap round; compressed: 1 a round and 1 packed uplink a round;
+# custom_strategy: two 3-round runs; fedlama: 4 rounds, then 2 + 2 for the
+# resume; fl_cifar_vgg: fedldf's 2 rounds (fedavg needs no divergence);
+# serve_llm (reduced mamba2, scan mode, K = 3): a call each a client
+EXAMPLE_RUNS = (
+    ("quickstart", ["--rounds", "3"], {"sqdiff_rowsum": 4}),
+    ("compressed_fl", ["--bits", "8", "--rounds", "3"],
+     {"sqdiff_rowsum": 3, "fused_uplink_ef": 3}),
+    ("compressed_fl", ["--bits", "auto", "--rounds", "3"],
+     {"sqdiff_rowsum": 3, "fused_uplink_ef": 3}),
+    ("compressed_fl", ["--bits", "4", "--no-error-feedback", "--rounds", "2"],
+     {"sqdiff_rowsum": 2, "fused_uplink": 2}),
+    ("custom_strategy", ["--rounds", "3"], {"sqdiff_rowsum": 6}),
+    ("fedlama_fl", ["--rounds", "4"], {"sqdiff_rowsum": 8}),
+    ("fl_cifar_vgg", ["--paper-scale", "--rounds", "2", "--algos",
+                      "fedldf,fedavg"], {"sqdiff_rowsum": 2}),
+    ("serve_llm", ["--rounds", "2"],
+     {"sqdiff_rowsum": 6, "masked_accumulate": 6}),
+)
+# fl_cifar_vgg --paper-scale, 2 rounds: n·model + K·U·4 a round for
+# fedldf, K·model for fedavg (VGG-9: 18,838,824 B, 9 units; n=4, K=20)
+CIFAR_UPLINK = {"fedldf": 150_712_032, "fedavg": 753_552_960}
+P20_ROUNDS = 2              # serve_llm's fine-tuning rounds at full width
+P20_STEPS = 12              # and its greedy decode steps
+# the plain versions the kernels replace: none may run in phase 20
+PLAIN_NAMES = ("sqdiff_rowsum", "sqdiff_rowsum_leaves", "masked_accumulate",
+               "masked_accumulate_leaves", "fused_uplink",
+               "fused_uplink_leaves", "fused_uplink_ef",
+               "fused_uplink_ef_leaves", "flash_attention")
+
+
+@contextlib.contextmanager
+def plain_calls_counted():
+    """Counts the calls of the kernels' plain versions
+    (``repro_torch.kernels.ref``) while it is open: the dispatch runs
+    them only for a tensor on the CPU."""
+    from repro_torch.kernels import ref as kref
+    seen = dict.fromkeys(PLAIN_NAMES, 0)
+    saved = {n: getattr(kref, n) for n in PLAIN_NAMES}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(kref, name, counted(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(kref, name, fn)
+
+
+@contextlib.contextmanager
+def flash_calls_recorded(limit):
+    """Keeps the first ``limit`` calls of the flash-attention kernel's
+    wrapper (their q, k, v and masks, as the model passed them) while it
+    is open; every call goes on to the kernel, so the launch counts are
+    the path's own."""
+    from repro_torch.kernels import flash_attention as fa
+    calls, kernel = [], fa.flash_attention
+
+    def recording(q, k, v, **kw):
+        if len(calls) < limit:
+            calls.append((q, k, v, kw))
+        return kernel(q, k, v, **kw)
+
+    fa.flash_attention = recording
+    try:
+        yield calls
+    finally:
+        fa.flash_attention = kernel
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase20(ctx):
+    """The six port examples through their ``main`` (a, and quickstart
+    again as a script), then ``serve_llm``'s fine-tune-then-serve path at
+    full width and depth through the example's own functions (b), with
+    the hybrid's flash-attention calls of a local step and of its serving
+    held against the plain attention (``ctx["main_path_check"]``).
+    Returns the launches of both, by counter."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.units import UnitMap, tree_leaves
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import transformer as tf
+    dev, smi = ctx["dev"], ctx["smi"]
+    t20 = time.perf_counter()
+    total = dict.fromkeys(ops.KERNELS, 0)
+
+    def launched(fn, quiet=False):
+        """fn()'s result, its seconds (synchronised), the kernels it
+        launched and the plain versions it called (the nonzero counts),
+        and its tail of standard output when ``quiet``."""
+        ops.reset_launch_counts()
+        out_buf = io.StringIO()
+        with plain_calls_counted() as plain, \
+                (contextlib.redirect_stdout(out_buf) if quiet
+                 else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        for k, v in counts.items():
+            total[k] += v
+        tail = " | ".join(out_buf.getvalue().strip().splitlines()[-2:])
+        return out, secs, counts, {k: v for k, v in plain.items() if v}, tail
+
+    # ---- (a) each example's main, in this process ----------------------
+    mods = {}
+    for name, argv, want in EXAMPLE_RUNS:
+        mod = mods.setdefault(name, load_example(name))
+        args = argv + ["--device", dev.type]
+        out, secs, counts, plain, tail = launched(
+            lambda: mod.main(args), quiet=True)
+        say(f"[example {name}] {' '.join(args)}: {secs:.2f} s; launches "
+            f"{counts} (want {want}); plain versions called {plain}; "
+            f"output: {tail}")
+        if counts != want or plain:
+            fail(f"example {name} {' '.join(args)}: launches {counts}, "
+                 f"expected {want}; plain versions called {plain}")
+        if name == "fl_cifar_vgg":
+            got = {a: log.meter.uplink_bytes for a, log in out.items()}
+            say(f"[example fl_cifar_vgg] paper-scale uplink over 2 rounds: "
+                f"{got} (want {CIFAR_UPLINK}); final test error "
+                f"{ {a: log.test_errors[-1][1] for a, log in out.items()} }")
+            if got != CIFAR_UPLINK:
+                fail(f"fl_cifar_vgg --paper-scale: uplink {got}, expected "
+                     f"{CIFAR_UPLINK}")
+    # one example from a checkout, as a script of its own
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py"),
+         "--rounds", "3", "--device", dev.type], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    say(f"[example quickstart] python examples/quickstart_torch.py --rounds "
+        f"3 with PYTHONPATH=src: rc {res.returncode}, "
+        f"{time.perf_counter() - t0:.2f} s; {lines[-1] if lines else ''}")
+    if res.returncode or not lines or "total uplink" not in lines[-1]:
+        fail(f"examples/quickstart_torch.py as a script: rc "
+             f"{res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+
+    # ---- (b) serve_llm's path at full width and depth -------------------
+    sl = mods["serve_llm"]
+    for arch in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                  compute_dtype="float32")
+        hybrid = tf.block_kind(cfg) == "hybrid"
+        toks, data, fl = sl.fl_task(cfg)
+        k = fl.clients_per_round
+        t0 = time.perf_counter()
+        params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            SEED), dev)
+        torch.cuda.synchronize()
+        leaves = tree_leaves(params)
+        p_bytes = sum(l_.numel() * l_.element_size() for l_ in leaves)
+        units = UnitMap.build(params).num_units
+        # n·model + K·U·4 a round, as the round's comm record holds it: a
+        # float32 (the nearest to this many bytes is a multiple of 256)
+        exact = fl.top_n * p_bytes + k * units * 4
+        want_up = P20_ROUNDS * float(np.float32(exact))
+        say(f"[serve_llm {arch}] full width and depth, f32: "
+            f"{sum(l_.numel() for l_ in leaves):,} params = {p_bytes:,} B "
+            f"in {len(leaves)} leaves and {units} units; init "
+            f"{time.perf_counter() - t0:.2f} s; FL: {fl.num_clients} "
+            f"clients, K={k}, top-n {fl.top_n}, B={fl.batch_per_client}, "
+            f"{sl.SEQ_LEN}-token sequences, mode {fl.mode}; reckoned peak "
+            f"4 x params = {4 * p_bytes / 2**30:.2f} GiB (the global "
+            f"model, a client's local copy, its gradient, the Eq. 5 "
+            f"accumulator) + activations")
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        # the hybrid's first local step's calls (one a layer) are kept
+        with flash_calls_recorded(cfg.num_layers if hybrid else 0) as \
+                step_calls:
+            (trained, log), secs, counts, plain, _ = launched(
+                lambda: sl.finetune(cfg, params, data, fl, P20_ROUNDS, dev,
+                                    verbose=False))
+        peak = torch.cuda.max_memory_allocated()
+        del params
+        want = {"sqdiff_rowsum": k * P20_ROUNDS,
+                "masked_accumulate": k * P20_ROUNDS}
+        if hybrid:
+            # a launch a layer a local step; scan mode trains each client
+            # twice a round (Eq. 3, then the streamed Eq. 5)
+            route = flash_attention.route(torch.float32, sl.SEQ_LEN - 1,
+                                          cfg.hd)
+            n_fa = cfg.num_layers * 2 * k * P20_ROUNDS
+            want.update({"flash_attention": n_fa,
+                         f"flash_attention_{route}": n_fa})
+            say(f"[serve_llm {arch}] flash attention: {cfg.num_layers} "
+                f"launches a local step ({2 * k * P20_ROUNDS} local steps), "
+                f"route {route!r} (f32, {sl.SEQ_LEN - 1} query rows, hd "
+                f"{cfg.hd}); its backward in plain ops (ref."
+                f"flash_attention_bwd)")
+        say(f"[serve_llm {arch}] fine-tune {P20_ROUNDS} rounds: "
+            f"{secs:.3f} s ({secs / P20_ROUNDS * 1e3:.1f} ms a round, the "
+            f"first warming up); losses {log.losses}; uplink "
+            f"{log.meter.uplink_bytes:,.0f} B (want {want_up:,.0f}: "
+            f"{P20_ROUNDS} x f32({exact:,})); launches "
+            f"{counts} (want {want}); plain versions called {plain}; peak "
+            f"{peak / 2**30:.2f} GiB, {(peak - held) / 2**30:.2f} GiB above "
+            f"the {held / 2**30:.2f} GiB held (reckoned "
+            f"{4 * p_bytes / 2**30:.2f} GiB)")
+        if counts != want or plain:
+            fail(f"serve_llm {arch} fine-tune: launches {counts}, expected "
+                 f"{want}; plain versions called {plain}")
+        if not all(math.isfinite(x) for x in log.losses) or \
+                log.meter.uplink_bytes != want_up:
+            fail(f"serve_llm {arch} fine-tune: losses {log.losses}, uplink "
+                 f"{log.meter.uplink_bytes}, expected {want_up}")
+
+        if hybrid:
+            # the training calls on the kernel's route against plain
+            ctx["main_path_check"](step_calls, f"{arch} local step",
+                                   "f32")
+        del step_calls
+
+        # serve the fine-tuned model; every step's logits against forward,
+        # and the hybrid's every flash call (the cache's written prefix,
+        # which later steps leave alone) against plain
+        with flash_calls_recorded(
+                cfg.num_layers * P20_STEPS if hybrid else 0) as serve_calls:
+            (prompts, run), gsecs, gcounts, gplain, _ = launched(
+                lambda: sl.generate(trained, cfg, toks, P20_STEPS, dev))
+        gwant = {}
+        if hybrid:
+            pre = flash_attention.route(torch.float32, sl.PROMPT_LEN, cfg.hd)
+            gwant = {"flash_attention": cfg.num_layers * P20_STEPS}
+            for r, n_ in ((pre, cfg.num_layers),
+                          ("decode", cfg.num_layers * (P20_STEPS - 1))):
+                gwant[f"flash_attention_{r}"] = \
+                    gwant.get(f"flash_attention_{r}", 0) + n_
+        with torch.inference_mode():
+            seq = torch.cat([prompts, run.tokens[:, :-1]], dim=1)
+            full = tf.forward(trained, cfg, seq)[0][:, sl.PROMPT_LEN - 1:]
+            got = torch.stack(run.logits, dim=1)
+            tol = SERVE_RTOL * float(got.abs().max())
+            d_full = float((got - full).abs().max())
+        del full, got
+        say(f"[serve_llm {arch}] serve {sl.PROMPTS} prompts of "
+            f"{sl.PROMPT_LEN} tokens, {P20_STEPS} greedy steps: "
+            f"{gsecs * 1e3:.1f} ms; launches {gcounts} (want {gwant}); "
+            f"logits vs forward over the same tokens: max_abs_diff "
+            f"{d_full:.3e} (limit {tol:.3e} = {SERVE_RTOL} x max |logit|); "
+            f"tokens {run.tokens[0].tolist()}")
+        if gcounts != gwant or gplain or not d_full <= tol:
+            fail(f"serve_llm {arch} serve: launches {gcounts}, expected "
+                 f"{gwant}; plain versions called {gplain}; logits "
+                 f"{d_full:.3e} from forward (limit {tol:.3e})")
+        if hybrid:
+            with torch.inference_mode():
+                ctx["main_path_check"](serve_calls, f"{arch} serving",
+                                       "f32")
+        del serve_calls
+
+        # one more run_training call of 1 round timed, and one under
+        # torch.profiler; each call's wall-clock includes its set-up, and
+        # the idle share is the profiled call's busy over its own
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sl.finetune(cfg, trained, data, fl, 1, dev, verbose=False)
+        torch.cuda.synchronize()
+        round_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        # the card's activity only: a round is tens of thousands of ops
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sl.finetune(cfg, trained, data, fl, 1, dev, verbose=False)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        say(f"[times] serve_llm {arch} fine-tune, one run_training call of "
+            f"1 round (warm, set-up included): wall-clock {round_ms:.3f} "
+            f"ms; under torch.profiler {prof_ms:.3f} ms with the device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / prof_ms:.4f} (the "
+            f"profiled call and its parse {time.perf_counter() - t0:.1f} "
+            f"s); peak {peak / 2**30:.2f} GiB ({smi})")
+        del trained, run, prompts, prof
+        torch.cuda.empty_cache()
+    say(f"[examples] phase 20: {time.perf_counter() - t20:.1f} s")
+    return total
+
+
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False; this smoke test needs a "
              "CUDA card")
@@ -1304,6 +1635,7 @@ def main():
         f"cuda={torch.version.cuda}")
 
     # ---- 2. build -----------------------------------------------------
+    say(f"[elapsed] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     build_s = _build.build()
     say(f"[build] nvcc, one process a source, all started together: "
@@ -1313,6 +1645,7 @@ def main():
                                for n in _build.SOURCES))
 
     # ---- 3. kernels vs plain on the card -------------------------------
+    say(f"[elapsed] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     failures = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1809,6 +2142,7 @@ def main():
         fail(f"kernel disagrees with its plain version: {failures}")
 
     # ---- 4. vmap rounds at full width ----------------------------------
+    say(f"[elapsed] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     cfg = vgg9.config()
     fl_v, fl_s = vgg9.fl_config(mode="vmap"), vgg9.fl_config(mode="scan")
     t0 = time.perf_counter()
@@ -1909,6 +2243,7 @@ def main():
         fail("vmap round disagrees with the plain round")
 
     # ---- 5. scan rounds at full width ----------------------------------
+    say(f"[elapsed] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     p_scan, counts_s, _ = drive(fl_s, "scan")
     for name in ("masked_accumulate", "sqdiff_rowsum"):
         if counts_s[name] != fl_s.clients_per_round * ROUNDS:
@@ -1945,6 +2280,7 @@ def main():
         f"{d3:.3e} (information only)")
 
     # ---- 6./7. the packed compressed uplink at full width ---------------
+    say(f"[elapsed] phase 6/7 starts at {time.perf_counter() - t_start:.1f} s")
     fl_a = vgg9.fl_config(compression=CompressionConfig(
         bits=8, error_feedback=True))
     fl_b = vgg9.fl_config(compression=CompressionConfig(bits=4))
@@ -2055,6 +2391,7 @@ def main():
         fail(f"kernel disagrees with its plain version: {failures}")
 
     # ---- 8. times ------------------------------------------------------
+    say(f"[elapsed] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     flush = torch.empty(64 * 2**20, device=dev)     # 256 MB > 50 MB L2
 
     def device_ms(fn, reps=20, prep=None):
@@ -2388,6 +2725,7 @@ def main():
         f"ms, setting B {rb_ms:.3f} ms ({smi})")
 
     # ---- 9. serving full-width qwen3-1.7b in f32 ------------------------
+    say(f"[elapsed] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
     del flush
 
     def main_path_check(calls, label, dn):
@@ -2546,6 +2884,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 10. serving in the config's own bf16, timed -----------------------
+    say(f"[elapsed] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
     params = tf.init_params(cfg_bf, gen_w.manual_seed(SEED), dev)
     serve.generate(params, cfg_bf, prompts[:, :256], 4)            # warm-up
     runs = [serve_once(params, cfg_bf, f"serve bf16 #{i}") for i in range(3)]
@@ -2622,6 +2961,7 @@ def main():
     serve.main(["--arch", SERVE_ARCH, "--temperature", "0"])
 
     # ---- 11. the device-resident engine at the paper's setup ------------
+    say(f"[elapsed] phase 11 starts at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_e, test_e = make_image_dataset(num_train=ENGINE_TRAIN,
@@ -2760,16 +3100,19 @@ def main():
         if not bool(torch.isfinite(pulled).all()):
             fail(f"engine {label}: block outputs {pulled}")
         # the block's device busy time under the profiler
+        # (the card's activity only: the block's tens of thousands of host
+        # ops made the profile's parse the phase's largest cost)
         from torch.profiler import ProfilerActivity, profile
         carry = fresh()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        prof_s = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             carry, per = run_block(carry, shards, all_sizes, host_sizes,
                                    draws, 0, 2)
             torch.cuda.synchronize()
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        prof_s = time.perf_counter() - prof_s
         del carry, per, p_2, p_h, p_a, p_b
         # round wall-clock: the engine beside the host-sampler driver
         t_eng = statistics.median(run_engine(fl, r)[2] / r * 1e3
@@ -2786,7 +3129,8 @@ def main():
             f"ms), then 1 pull of {tuple(pulled.shape)}; block "
             f"{block_s * 1e3:.3f} ms; device busy under torch.profiler "
             f"{busy / 2:.3f} ms a round, idle share {idle:.4f} of the "
-            f"engine round")
+            f"engine round (the profiled block and its parse {prof_s:.1f} "
+            f"s)")
         del p_e, log_e, log_h
 
     # host->device bytes a round, from the shapes each driver copies
@@ -2809,6 +3153,7 @@ def main():
         f"{h2d_host - h2d_engine} B less")
 
     # ---- 12. every strategy through the engine --------------------------
+    say(f"[elapsed] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
     for algo, mode in ([(a, "vmap") for a in ALGOS]
                        + [("fedadp", "scan"), ("fedldf", "scan")]):
         fl = vgg9.fl_config(algo=algo, mode=mode)
@@ -2845,6 +3190,7 @@ def main():
     del shards
 
     # ---- 13. federated LoRA fine-tuning of full-width qwen3-1.7b ---------
+    say(f"[elapsed] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
     from repro_torch.core.partition import partition_counts
     from repro_torch.data import lm_federated, make_lm_dataset
     from repro_torch.kernels.flash_attention import FlashAttentionFn
@@ -3190,6 +3536,7 @@ def main():
     say(f"[lora] phase 13: {time.perf_counter() - t13:.1f} s")
 
     # ---- 14. serving the ssm and hybrid families at full width ----------
+    say(f"[elapsed] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.units import tree_stack_index
     from repro_torch.models import ssm as ssm_mod
@@ -3430,6 +3777,7 @@ def main():
     say(f"[ssm-serve] phase 14: {time.perf_counter() - t14:.1f} s")
 
     # ---- 15. serving full-width deepseek-moe-16b --------------------------
+    say(f"[elapsed] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
     from repro_torch.models import moe as moe_mod
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_moe_loop import moe_loop
@@ -3676,6 +4024,7 @@ def main():
     say(f"[moe-serve] phase 15: {time.perf_counter() - t15:.1f} s")
 
     # ---- 16. serving full-width seamless-m4t-large-v2 (enc-dec) -----------
+    say(f"[elapsed] phase 16 starts at {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
     t16 = time.perf_counter()
     cfg_bf = get_config(ENCDEC_ARCH)
@@ -3695,9 +4044,10 @@ def main():
         launches the kernel once an encoder layer and twice a decoder layer
         (self, cross), all on its dtype's prefill route; a decode step
         twice a decoder layer, on the split-KV route."""
+        fr = frames.to(dtype_of(cfg.compute_dtype))   # the run's dtype
         ops.reset_launch_counts()
         run = serve.generate(p, cfg, prompts, steps, keep_logits=True,
-                             enc_inputs=frames)
+                             enc_inputs=fr)
         counts = ops.launch_counts()
         want = dict.fromkeys(flash_attention.ROUTES, 0)
         want[flash_attention.route(dtype_of(cfg.compute_dtype),
@@ -3795,8 +4145,9 @@ def main():
     if sizes != ENCDEC_PARAMS:
         fail(f"{ENCDEC_ARCH}: the parameter tree holds {sizes}, expected "
              f"{ENCDEC_PARAMS}")
+    frames_bf = frames.bfloat16()       # bf16 frames for the bf16 model
     serve.generate(params, cfg_bf, prompts[:, :256], 4,
-                   enc_inputs=frames[:, :256])                      # warm-up
+                   enc_inputs=frames_bf[:, :256])                   # warm-up
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3810,7 +4161,7 @@ def main():
     tok_ms = statistics.median(r_.decode_s_per_token * 1e3 for r_, _ in runs)
     with torch.inference_mode():
         (lg, cache), busy_pre, top_pre = profile_once(
-            lambda: dec.prefill(params, cfg_bf, prompts, frames,
+            lambda: dec.prefill(params, cfg_bf, prompts, frames_bf,
                                 max_len=max_len))
         _, busy_dec, top_dec = profile_once(
             lambda: dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None],
@@ -3839,7 +4190,7 @@ def main():
     # decode step's, a layer's self and cross in turn
     recorded_fa = []
     with torch.inference_mode():
-        lg, cache = dec.prefill(params, cfg_bf, prompts, frames,
+        lg, cache = dec.prefill(params, cfg_bf, prompts, frames_bf,
                                 max_len=max_len, flash_attention=recording_fa)
         pre_calls = recorded_fa[:]
         dec.decode_step(params, cfg_bf, lg.argmax(-1)[:, None], cache,
@@ -3875,6 +4226,7 @@ def main():
     say(f"[encdec-serve] phase 16: {time.perf_counter() - t16:.1f} s")
 
     # ---- 17. round telemetry at the paper's setup ------------------------
+    say(f"[elapsed] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import monitor
     from repro_torch.launch import train as train_cli
@@ -4267,6 +4619,7 @@ def main():
         f"on its path {counts_17}")
 
     # ---- 18. the client mesh at the paper's setup -----------------------
+    say(f"[elapsed] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
     counts_18 = phase18({"dev": dev, "smi": smi, "params0": params0,
                          "data_e": data_e, "umap": umap, "fl_v": fl_v,
                          "fl_a": fl_a, "loss_fn": loss_fn,
@@ -4275,8 +4628,14 @@ def main():
     del data_e, train_e
 
     # ---- 19. the dry-run's counts of the prefill and the round ----------
+    say(f"[elapsed] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
     phase19({**serve_19, "smi": smi, "vgg_cfg": vgg9.config(),
              "fl_v": fl_v, "vgg_arg_bytes": vgg_arg_bytes, "rv_ms": rv_ms})
+
+    # ---- 20. the examples, and serve_llm's path at full width -----------
+    say(f"[elapsed] phase 20 starts at {time.perf_counter() - t_start:.1f} s")
+    counts_20 = phase20({"dev": dev, "smi": smi,
+                         "main_path_check": main_path_check})
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",
@@ -4285,7 +4644,7 @@ def main():
          "launches": sum(c.get("sqdiff_rowsum", 0)
                          for c in (counts_v, counts_s, counts_a, counts_b,
                                    *lora_counts.values(), counts_17,
-                                   counts_18)),
+                                   counts_18, counts_20)),
          "max_abs_err": main_err["sqdiff_rowsum"], "ms": sq_ms,
          "plain_ms": sq_plain, "bound_ms": sq_bound_v, "bound_by": sq_by,
          "library_ms": None},
@@ -4294,14 +4653,15 @@ def main():
          "replaces": "src/repro/kernels/aggregate.py:25",
          "launches": (counts_v["masked_accumulate"]
                       + counts_s["masked_accumulate"]
-                      + lora_counts["scan"]["masked_accumulate"]),
+                      + lora_counts["scan"]["masked_accumulate"]
+                      + counts_20["masked_accumulate"]),
          "max_abs_err": main_err["masked_accumulate"], "ms": ma_ms,
          "plain_ms": ma_plain, "bound_ms": ma_bound, "bound_by": ma_by,
          "library_ms": ma_lib},
         {"name": "fused_uplink", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/uplink.cu",
          "replaces": "src/repro/kernels/uplink.py:82",
-         "launches": counts_b["fused_uplink"],
+         "launches": counts_b["fused_uplink"] + counts_20["fused_uplink"],
          "max_abs_err": main_err["fused_uplink"], "ms": up_ms,
          "plain_ms": up_plain, "bound_ms": up_bound, "bound_by": up_by,
          "library_ms": up_lib},
@@ -4311,7 +4671,8 @@ def main():
          "launches": (counts_a["fused_uplink_ef"]
                       + lora_counts["A"]["fused_uplink_ef"]
                       + counts_17.get("fused_uplink_ef", 0)
-                      + counts_18.get("fused_uplink_ef", 0)),
+                      + counts_18.get("fused_uplink_ef", 0)
+                      + counts_20["fused_uplink_ef"]),
          "max_abs_err": main_err["fused_uplink_ef"], "ms": ef_ms,
          "plain_ms": ef_plain, "bound_ms": ef_bound, "bound_by": ef_by,
          "library_ms": None},
@@ -4319,8 +4680,9 @@ def main():
     # flash attention a route: the prefill (tensor cores) keeps the
     # kernel's name; times are one use (28 launches) of the main path;
     # launches add phase 13's fine-tuning runs (bf16 on the tensor-core
-    # route, f32 on the CUDA cores)
-    for c in lora_counts.values():
+    # route, f32 on the CUDA cores) and phase 20's (hymba's f32 training on
+    # the CUDA cores, its serving on the split-KV route)
+    for c in (*lora_counts.values(), counts_20):
         for route in flash_attention.ROUTES:
             launches[route] += c[f"flash_attention_{route}"]
     for name, route, source in (
@@ -4337,6 +4699,7 @@ def main():
             "launches": launches[route], "max_abs_err": fa_err[route],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms})
+    say(f"[elapsed] all phases: {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -60,7 +60,9 @@ def round_comm(selection: torch.Tensor, umap: UnitMap, *,
     else:
         scale = (1.0 if param_bytes_override is None
                  else param_bytes_override / 4.0)
-        unit_bytes = umap.unit_bytes_tensor(dev) * scale
+        # the byte counts as exact float64 integers: in f32 a unit of over
+        # 2**24 B may round (a full-width LLM's layer does)
+        unit_bytes = umap.unit_bytes_tensor(dev, torch.float64) * scale
     payload = torch.sum(selection.double() * unit_bytes.double()[None, :])
     if mesh is not None:
         payload = mesh.all_reduce_flat(payload.reshape(1))[0]

@@ -129,9 +129,10 @@ class UnitMap:
                        unit_bytes=tuple(nbytes), unit_params=tuple(nparams))
 
     # ------------------------------------------------------------------
-    def unit_bytes_tensor(self, device) -> torch.Tensor:
-        return host_to_device(torch.tensor(self.unit_bytes,
-                                           dtype=torch.float32), device)
+    def unit_bytes_tensor(self, device,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return host_to_device(torch.tensor(self.unit_bytes, dtype=dtype),
+                              device)
 
     def unit_params_tensor(self, device) -> torch.Tensor:
         return host_to_device(torch.tensor(self.unit_params,

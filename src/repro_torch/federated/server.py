@@ -651,6 +651,7 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
     reference's (the replicated 1-D leaves are not subtracted).
     """
     mesh = flcfg.mesh
+    mesh.check_member()
     d = client_mesh_size(mesh)
     m = model_mesh_size(mesh)
     if m > 1 and layout is None:
@@ -663,8 +664,6 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
     taps_on = _taps_on(flcfg)
     gs = flcfg.agg_group_size
     hier = bool(gs) and gs < d
-    if hier:
-        mesh.tier_group(gs)     # collective: every rank, before any round
     tier_bytes = comm_mod.agg_tier_bytes(umap.total_bytes / m, d,
                                          gs if hier else 0)
 
@@ -1011,6 +1010,7 @@ def _device_of(device, flcfg: FLConfig) -> torch.device:
     mesh = flcfg.mesh
     if mesh is None:
         return device
+    mesh.check_member()
     if device.type != mesh.device.type:
         raise ValueError(f"device={device} but the mesh runs on "
                          f"{mesh.device}; pass device={mesh.device.type!r}")

@@ -15,12 +15,15 @@ the clients axis, :meth:`~ClientMesh.all_gather_model` over the model
 axis), each with call and byte counters.
 
 ``make_client_mesh(D)`` is the 1-D ``'clients'`` mesh: the round's K
-clients split D ways. ``make_client_mesh(D, model=M)`` folds the D ranks
-into a ``(C = D // M, M)`` grid, rank r at ``(c, m) = (r // M, r % M)``
-(the reference's ``devs.reshape(D // M, M)``): the M ranks of a model row
-(one c) train the same K/C clients, each holding a 1/M shard of every
-parameter leaf and of the EF store (FSDP, :mod:`repro_torch.launch.
-sharding`), and the clients-axis collectives run within a column (one m).
+clients split D ways. D may be smaller than the world: the mesh is then
+world ranks 0..D-1 (the reference's first D devices), and a rank outside
+it holds a mesh it cannot run a round on. ``make_client_mesh(D,
+model=M)`` folds the D ranks into a ``(C = D // M, M)`` grid, rank r at
+``(c, m) = (r // M, r % M)`` (the reference's ``devs.reshape(D // M,
+M)``): the M ranks of a model row (one c) train the same K/C clients,
+each holding a 1/M shard of every parameter leaf and of the EF store
+(FSDP, :mod:`repro_torch.launch.sharding`), and the clients-axis
+collectives run within a column (one m).
 
 Backends: ``nccl`` when every rank has a card of its own (the default on
 CUDA while the world is no larger than ``torch.cuda.device_count()``),
@@ -176,10 +179,16 @@ class ClientMesh:
 
     ``backend`` is the process group's (``"nccl"`` or ``"gloo"``), or None
     for a mesh without a process group, whose collectives are the
-    identity. On the grid every rank creates the C row groups and the M
-    column groups at construction, in that order (``new_group`` is
-    collective). The clients-axis collectives run over this rank's column
-    (the whole world on the 1-D mesh; none at C = 1, where they are the
+    identity. The mesh is world ranks ``0..size-1``; in a larger world
+    (a submesh) a rank ``>= size`` is no ``member``: it holds the mesh
+    but raises on any round (:meth:`check_member`), as a JAX process
+    that owns no device of the mesh. Every rank of the world creates, at
+    construction and in the same order (``new_group`` is collective),
+    the submesh's group on the 1-D mesh, or on the grid the C row groups
+    and the M column groups, then the two-tier reduce's groups of every
+    group size from 2 below C that divides C (:meth:`tier_group`). The
+    clients-axis collectives run over this rank's column (the world, or the
+    submesh's group, on the 1-D mesh; none at C = 1, where they are the
     identity), :meth:`all_gather_model` over its row. Every collective is
     called by every rank of its group in the same order, as the
     reference's ``shard_map`` body runs on every device. ``counts()``
@@ -205,24 +214,41 @@ class ClientMesh:
         self.stage = backend == "gloo" and self.device.type == "cuda"
         self._tiers: dict[int, object] = {}
         self._host: Optional[torch.Tensor] = None
-        # the clients axis: the world (group None) on the 1-D mesh, this
-        # rank's column on the grid; no collective at all along an axis of
-        # one rank
+        # the clients axis: the world (group None) or the submesh's group
+        # on the 1-D mesh, this rank's column on the grid; no collective
+        # at all along an axis of one rank
         self._col = self._row = None
         self._col_solo = backend is None or (self.model_size > 1
                                              and self.client_size == 1)
         self._row_solo = backend is None or self.model_size == 1
-        if backend is not None and self.model_size > 1:
-            c_, m_ = self.client_size, self.model_size
+        world = dist.get_world_size() if backend is not None else self.size
+        self.member = self.rank < self.size
+        c_, m_ = self.client_size, self.model_size
+        if backend is not None and m_ > 1:
             for c in range(c_):
                 pg = self._new_group([c * m_ + j for j in range(m_)])
-                if c == self.client_rank:
+                if self.member and c == self.client_rank:
                     self._row = pg
             for j in range(m_):
                 pg = self._new_group([c * m_ + j for c in range(c_)])
-                if j == self.model_rank:
+                if self.member and j == self.model_rank:
                     self._col = pg
+        elif backend is not None and world > self.size:
+            pg = self._new_group(list(range(self.size)))
+            self._col = pg if self.member else None
+        if backend is not None:
+            # a block of 1 needs none, a block of C is the column
+            for gs in range(2, c_):
+                if c_ % gs == 0:
+                    self._tiers[gs] = self._new_tier(gs)
         self.reset_counts()
+
+    def check_member(self) -> None:
+        """Raise unless this rank is one of the mesh's."""
+        if not self.member:
+            raise ValueError(
+                f"rank {self.rank} is not in this client mesh of ranks "
+                f"0..{self.size - 1}: only they run its rounds")
 
     def _new_group(self, ranks: list[int]):
         return dist.new_group(ranks, backend=self.backend,
@@ -301,21 +327,30 @@ class ClientMesh:
             return buf
         return self._all_reduce(buf, self._col)
 
+    def _new_tier(self, group_size: int):
+        """Every column's blocks of ``group_size`` consecutive client
+        coordinates, each a new group (collective: every rank of the world
+        creates them all, in order); returns this rank's."""
+        mine = None
+        for j in range(self.model_size):
+            for g in range(self.client_size // group_size):
+                ranks = [(g * group_size + i) * self.model_size + j
+                         for i in range(group_size)]
+                pg = self._new_group(ranks)
+                if self.rank in ranks:
+                    mine = pg
+        return mine
+
     def tier_group(self, group_size: int):
         """The process group of this rank's block of ``group_size``
-        consecutive client coordinates within its column. ``new_group``
-        is collective: every rank creates every column's blocks' groups,
-        in order, the first time a size is asked."""
+        consecutive client coordinates within its column, made at
+        construction for every size from 2 below C that divides C; a
+        block of C is the column's own group."""
+        if group_size == self.client_size:
+            return self._col
         if group_size not in self._tiers:
-            mine = None
-            for j in range(self.model_size):
-                for g in range(self.client_size // group_size):
-                    ranks = [(g * group_size + i) * self.model_size + j
-                             for i in range(group_size)]
-                    pg = self._new_group(ranks)
-                    if self.rank in ranks:
-                        mine = pg
-            self._tiers[group_size] = mine
+            raise ValueError(f"no tier group of {group_size} ranks on a "
+                             f"clients axis of {self.client_size}")
         return self._tiers[group_size]
 
     def group_all_reduce(self, buf: torch.Tensor,
@@ -359,11 +394,12 @@ class ClientMesh:
             self._p2p(buf.contiguous(), out, dst, src)
         return out
 
-    @staticmethod
-    def _p2p(send: torch.Tensor, recv: torch.Tensor, dst: int,
+    def _p2p(self, send: torch.Tensor, recv: torch.Tensor, dst: int,
              src: int) -> None:
-        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst),
-                                       dist.P2POp(dist.irecv, recv, src)])
+        # in the clients-axis group: every rank of it sends and receives
+        reqs = dist.batch_isend_irecv(
+            [dist.P2POp(dist.isend, send, dst, group=self._col),
+             dist.P2POp(dist.irecv, recv, src, group=self._col)])
         for r in reqs:
             r.wait()
 
@@ -411,9 +447,13 @@ def make_client_mesh(num_devices: int | None = None, model: int = 1,
     :class:`ClientMesh`); M must divide D.
 
     ``num_devices`` None is every rank of the process group (a world of 1
-    without one). Inside a group, ``num_devices`` must be the world's size
-    (the mesh's collectives run in the group, also at 1), or 1 for a mesh
-    of this rank alone, whose collectives are the identity. ``processes``
+    without one). Inside a group, ``num_devices`` D of the world's W ranks
+    is the mesh of world ranks 0..D-1, the reference's first D devices
+    (the mesh's collectives run in the group, also at D = W = 1; at
+    1 < D < W in a group of those D, which every rank creates); a rank
+    ``>= D`` gets a mesh whose rounds raise (:meth:`ClientMesh.
+    check_member`). D = 1 < W is this rank alone, whose collectives are
+    the identity. ``processes``
     checks the world's size, as the reference's checks
     ``jax.process_count()``. ``device`` ``"cuda"`` is this process's card
     (``torch.cuda.current_device()``, which :func:`init_distributed`
@@ -431,10 +471,6 @@ def make_client_mesh(num_devices: int | None = None, model: int = 1,
             f"make_client_mesh: processes={processes} but the process group "
             f"has {world} — call repro_torch.launch.mesh.init_distributed() "
             "in every process first")
-    if grouped and 1 < n < world:
-        raise ValueError(
-            f"make_client_mesh: a mesh of {n} of the group's {world} ranks "
-            "is not supported; start a group of that many processes")
     model = max(int(model), 1)
     if n % model:
         raise ValueError(
@@ -443,9 +479,9 @@ def make_client_mesh(num_devices: int | None = None, model: int = 1,
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if grouped and n == world:
-        return ClientMesh(world, dist.get_rank(), device,
-                          dist.get_backend(), model=model)
+    if grouped and (n == world or n > 1):
+        return ClientMesh(n, dist.get_rank(), device, dist.get_backend(),
+                          model=model)
     return ClientMesh(1, 0, device, None)
 
 

@@ -131,12 +131,13 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             o = 0.5 * (o + o2)
         x = x + o
         if kind == "dec":
-            ck, cv = cache["cross_k"][l], cache["cross_v"][l]
+            # the prompt attends to the K/V as computed (f32 of f32
+            # frames); the cache holds them in its dtype
             k, v = _cross_kv(blk["cross"], cfg, enc_out)
-            ck.copy_(k)
-            cv.copy_(v)
+            cache["cross_k"][l].copy_(k)
+            cache["cross_v"][l].copy_(v)
             x = x + _cross_attn(blk["cross"], cfg,
-                                rms_norm(x, blk["ln_cross"]), (ck, cv),
+                                rms_norm(x, blk["ln_cross"]), (k, v),
                                 flash_attention)
         x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
     cache["pos"] = s

@@ -48,9 +48,13 @@ An enc-dec model encodes its frames once (:func:`_encode`: the frontend
 stub's projection, then the ``enc`` stack), projects each decoder layer's
 cross K/V from the encoder's output once (:func:`_enc_kv_all`), and its
 ``dec`` blocks attend to them with plain projections (no bias, qk-norm,
-RoPE or LoRA; :func:`_cross_attn`). The frames are cast to the compute
-dtype first: in the reference f32 frames promote a bf16 encoder to f32,
-and ``f32 @ bf16`` is an error here.
+RoPE or LoRA; :func:`_cross_attn`). The frames follow jnp's promotion,
+as in the reference: frames wider than the compute dtype (f32 into a bf16
+model) run the encoder and the cross K/V projections in the wider dtype,
+with the weights cast up (exact), since ``f32 @ bf16`` is an error in
+PyTorch; a decoder layer's cross-attention of its q over the wider K/V
+runs in that dtype and returns q's, as the reference's ``attend`` does.
+Frames in the compute dtype, or narrower, are cast to it.
 
 """
 from __future__ import annotations
@@ -60,7 +64,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.partition import leaf_paths, tree_from_paths
-from repro_torch.core.units import tree_stack_index
+from repro_torch.core.units import tree_map, tree_stack_index
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -210,8 +214,10 @@ def _cross_attn(p, cfg: ModelConfig, x, enc_kv,
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.hd)
     k, v = enc_kv
-    o = attn.attend(q, k, v, causal=False, window=0,
-                    flash_attention=flash_attention)
+    # f32 K/V of f32 frames: attend in f32 and return q's dtype
+    dt = torch.promote_types(q.dtype, k.dtype)
+    o = attn.attend(q.to(dt), k, v, causal=False, window=0,
+                    flash_attention=flash_attention).to(q.dtype)
     return o.reshape(b, s, -1) @ p["wo"]
 
 
@@ -331,12 +337,20 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, device,
 def _encode(params, cfg: ModelConfig, enc_inputs,
             flash_attention: Optional[Callable] = None):
     """Frontend stub frames (B, S_enc, F) -> encoder stack -> (B, S_enc,
-    D). The frames are cast to the compute dtype first."""
-    x = enc_inputs.to(dtype_of(cfg.compute_dtype)) \
-        @ params["enc_embed"]["proj"]
-    x = rms_norm(x, params["enc_embed"]["norm"])
+    D) in the frames' and the compute dtype's promotion: frames wider than
+    the compute dtype run the encoder in their dtype, its weights cast up;
+    other frames are cast to the compute dtype."""
+    compute = dtype_of(cfg.compute_dtype)
+    dt = torch.promote_types(enc_inputs.dtype, compute)
+    enc = {"enc_embed": params["enc_embed"],
+           "enc_blocks": params["enc_blocks"]}
+    if dt != compute:
+        enc = tree_map(lambda l: l.to(dt) if l.is_floating_point() else l,
+                       enc)
+    x = enc_inputs.to(dt) @ enc["enc_embed"]["proj"]
+    x = rms_norm(x, enc["enc_embed"]["norm"])
     pos = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
-    x, _ = _run_stack(params["enc_blocks"], cfg, x, pos, "enc",
+    x, _ = _run_stack(enc["enc_blocks"], cfg, x, pos, "enc",
                       flash_attention=flash_attention)
     return x
 
@@ -346,8 +360,9 @@ def _cross_kv(cross, cfg: ModelConfig, enc_out):
     S_enc, KV, hd)."""
     b, se, _ = enc_out.shape
     shape = (b, se, cfg.num_kv_heads, cfg.hd)
-    return ((enc_out @ cross["wk"]).reshape(shape),
-            (enc_out @ cross["wv"]).reshape(shape))
+    dt = torch.promote_types(enc_out.dtype, cross["wk"].dtype)
+    return ((enc_out @ cross["wk"].to(dt)).reshape(shape),
+            (enc_out @ cross["wv"].to(dt)).reshape(shape))
 
 
 def _enc_kv_all(params, cfg: ModelConfig, enc_out):

@@ -9,7 +9,8 @@ none on ``cross``); ``lm_loss`` and every leaf's gradient against
 ``jax.value_and_grad`` (also under ``torch.func.vmap(grad_and_value)``);
 ``remat_blocks`` bit for bit; one fedldf round of the reduced config in
 vmap and scan mode; and the frames' dtype: bf16 frames given to both
-packages, f32 frames into a bf16 model cast to bf16."""
+packages, and f32 frames into a bf16 model promoted as jnp promotes them
+(the encoder and the cross K/V in f32)."""
 import dataclasses
 
 import pytest
@@ -331,18 +332,54 @@ def test_bf16_frames_match_reference():
 
 
 def test_f32_frames_into_a_bf16_model_are_cast():
-    """f32 frames into a bf16 model: the port casts them to bf16 (the
-    reference would run its encoder in f32 instead), so they give what
-    the same frames given in bf16 give, bit for bit."""
-    _, tcfg = _bf16_cfgs()
-    tp = tfm.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
-    fr = torch.from_numpy(_frames(tcfg))
-    toks = torch.from_numpy(np.random.default_rng(9).integers(
-        0, tcfg.vocab_size, size=(2, 8)))
-    a, _ = tfm.forward(tp, tcfg, toks, enc_inputs=fr)
-    b, _ = tfm.forward(tp, tcfg, toks, enc_inputs=fr.bfloat16())
-    assert a.dtype == torch.bfloat16 and torch.equal(a, b)
-    la, ca = tdec.prefill(tp, tcfg, toks, enc_inputs=fr)
-    lb, cb = tdec.prefill(tp, tcfg, toks, enc_inputs=fr.bfloat16())
-    assert torch.equal(la, lb)
-    assert torch.equal(ca["cross_k"], cb["cross_k"])
+    """f32 frames into a bf16 model follow jnp's promotion: the encoder's
+    bf16 weights are cast up (exact), so ``_encode`` is f32 and within
+    1e-5 of max |out| of the reference's f32 encoder, and so is every
+    decoder layer's cross K/V from it (``_enc_kv_all``)."""
+    jcfg, tcfg = _bf16_cfgs()
+    jp = jtfm.init_params(jax.random.PRNGKey(2), jcfg)
+    tp = to_torch(jp)
+    fr = _frames(tcfg)
+    jout = jtfm._encode(jp, jcfg, jnp.asarray(fr))
+    tout = tfm._encode(tp, tcfg, torch.from_numpy(fr))
+    assert jout.dtype == jnp.float32 and tout.dtype == torch.float32
+    _close(tout, jout, ENC_TOL * float(jnp.abs(jout).max()), "encode")
+    jk, jv = jtfm._enc_kv_all(jp, jcfg, jout)
+    tk, tv = tfm._enc_kv_all(tp, tcfg, tout)
+    for t_, j_, name in ((tk, jk, "cross k"), (tv, jv, "cross v")):
+        assert j_.dtype == jnp.float32 and t_.dtype == torch.float32
+        _close(t_, j_, ENC_TOL * float(jnp.abs(j_).max()), name)
+
+
+def test_f32_frames_prefill_and_forward_match_reference():
+    """The same f32 frames through a bf16 ``prefill`` and ``forward``:
+    bf16 logits within bf16 rounding of the reference's, the cross K/V
+    cast to the cache's dtype where the reference casts them, and a
+    result other than the same frames given in bf16."""
+    jcfg, tcfg = _bf16_cfgs()
+    jp = jtfm.init_params(jax.random.PRNGKey(2), jcfg)
+    tp = to_torch(jp)
+    fr = _frames(tcfg)
+    toks = np.random.default_rng(9).integers(0, tcfg.vocab_size,
+                                             size=(2, 8)).astype(np.int32)
+    tol = 3e-2
+    jlg, jcache = jdec.prefill(jp, jcfg, jnp.asarray(toks),
+                               enc_inputs=jnp.asarray(fr))
+    tfr, ttoks = torch.from_numpy(fr), torch.from_numpy(toks).long()
+    tlg, tcache = tdec.prefill(tp, tcfg, ttoks, enc_inputs=tfr)
+    assert tlg.dtype == torch.bfloat16 and jlg.dtype == jnp.bfloat16
+    scale = float(jnp.abs(jlg.astype(jnp.float32)).max())
+    _close(tlg, jlg.astype(jnp.float32), tol * scale)
+    for key in ("cross_k", "cross_v"):
+        assert str(tcache[key].dtype).split(".")[-1] == str(jcache[key].dtype)
+        scale = float(jnp.abs(jcache[key].astype(jnp.float32)).max())
+        _close(tcache[key], jcache[key].astype(jnp.float32), tol * scale,
+               key)
+    jfw, _ = jtfm.forward(jp, jcfg, jnp.asarray(toks),
+                          enc_inputs=jnp.asarray(fr))
+    tfw, _ = tfm.forward(tp, tcfg, ttoks, enc_inputs=tfr)
+    assert tfw.dtype == torch.bfloat16
+    scale = float(jnp.abs(jfw.astype(jnp.float32)).max())
+    _close(tfw, jfw.astype(jnp.float32), tol * scale)
+    lb, _ = tdec.prefill(tp, tcfg, ttoks, enc_inputs=tfr.bfloat16())
+    assert not torch.equal(tlg, lb)

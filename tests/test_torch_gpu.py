@@ -1521,22 +1521,26 @@ def test_cuda_flash_attention_seamless_shapes(cuda, route):
     assert ops.launch_counts()["flash_attention_tc"] == 2
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_encdec_serving_matches_cpu(cuda, no_tf32, dtype):
+@pytest.mark.parametrize("dtype,frames_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32")])
+def test_cuda_encdec_serving_matches_cpu(cuda, no_tf32, dtype, frames_dtype):
     """A small enc-dec model (G = 1, hd 64) over 24 frames: prefill and 4
     decode steps on the card against the CPU (f32 within 1e-4, bf16 within
     3e-2 of max |logit|), in f32 also against forward on the card; the
-    kernel launches 3 × L times a prefill (encoder, decoder, cross; bf16:
-    all on the tensor cores) and 2 × L a decode step (split-KV), and the
-    cross K/V stay as the prefill wrote them."""
+    kernel launches 3 × L times a prefill (encoder, decoder, cross; bf16
+    frames: all on the tensor cores; f32 frames into the bf16 model: the
+    encoder and the cross on the CUDA cores in f32, the decoder's self on
+    the tensor cores) and 2 × L a decode step (split-KV), and the cross
+    K/V stay as the prefill wrote them."""
     cfg = ModelConfig(**{**TINY_ENCDEC, "param_dtype": dtype,
                          "compute_dtype": dtype})
     layers = cfg.num_layers
     params = ttf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, 97, size=(2, 24)))
-    frames = torch.from_numpy(rng.standard_normal((2, 24, 48),
-                                                  dtype=np.float32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 24, 48), dtype=np.float32)).to(getattr(torch, frames_dtype))
     outs = {}
     for dev in ("cpu", cuda):
         p = tree_map(lambda l: l.to(dev), params)
@@ -1562,8 +1566,12 @@ def test_cuda_encdec_serving_matches_cpu(cuda, no_tf32, dtype):
     tol = (1e-4 if dtype == "float32" else
            3e-2 * float(outs["cpu"].abs().max()))
     torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=0, atol=tol)
-    route = "cuda_core" if dtype == "float32" else "tc"
-    assert pre[f"flash_attention_{route}"] == 3 * layers
+    if dtype == frames_dtype:
+        route = "cuda_core" if dtype == "float32" else "tc"
+        assert pre[f"flash_attention_{route}"] == 3 * layers
+    else:
+        assert (pre["flash_attention_cuda_core"],
+                pre["flash_attention_tc"]) == (2 * layers, layers)
     assert pre["flash_attention"] == 3 * layers
     counts = ops.launch_counts()
     assert counts["flash_attention_decode"] == 4 * 2 * layers

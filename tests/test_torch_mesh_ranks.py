@@ -13,17 +13,25 @@ arrays); the tests below read its results:
   setting A (int8 + EF; plus one quantization step, as
   ``tests/test_torch_compressed_round.py``) and FedADP, with the comm
   bytes exact;
-- two-tier against flat, ``hierarchical_psum`` against a flat all-reduce,
-  the collectives a round, every rank's params and EF store bit for bit;
+- two-tier against flat, ``hierarchical_psum`` (and the tier-1 reduce
+  over the whole clients axis) against a flat all-reduce, the
+  collectives a round, every rank's params and EF store bit for bit;
 - host driver against engine and telemetry on against off, bit for bit,
   and the ledger's mesh header and tier bytes;
-- sample sharding against the replicated placement, bit for bit.
+- sample sharding against the replicated placement, bit for bit;
+- a submesh of world ranks 0-1 in the world of 4 (``make_client_mesh(2)``
+  and the 1 x 2 grid): the 2-rank world's round bit for bit, and the
+  reference's ``make_client_mesh(2)`` round, run on 2 forced CPU devices
+  in a subprocess, within 2e-5; ranks 2-3 raise.
 
 The reference's one-device mesh round covers D=1 in this process; its
 D=2/4 sharded rounds run only when ``REPRO_TEST_DEVICES`` gives JAX the
 devices (as ``tests/test_shard_engine.py``).
 """
 import io
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -88,6 +96,45 @@ def task():
             "jd": jdata.FederatedData(train.xs, train.ys, parts)}
 
 
+# the reference's make_client_mesh(2) round on the task, in a process of
+# its own: JAX's device count is fixed when it starts
+_SUBMESH_REF = """
+import sys
+import jax
+import numpy as np
+import repro.data as jdata
+from repro.federated import FLConfig, run_training_scan
+from repro.launch.mesh import make_client_mesh
+from repro.models import cnn
+cfg = cnn.VGGConfig().reduced()
+train, _ = jdata.make_image_dataset(num_train=320, num_test=16, seed=2)
+data = jdata.FederatedData(train.xs, train.ys,
+                           jdata.iid_partition(train.ys, {n}, seed=0))
+fl = FLConfig(algo="fedldf", num_clients={n}, clients_per_round={k},
+              top_n={top}, mode="vmap", batch_per_client={b},
+              mesh=make_client_mesh(2))
+p, log = run_training_scan(cnn.init_params(jax.random.PRNGKey(0), cfg),
+                           lambda p, b: cnn.classify_loss(p, cfg, b), data,
+                           fl, rounds={rounds}, seed=0)
+np.savez(sys.argv[1], *[np.asarray(l) for l in jax.tree.leaves(p)],
+         losses=np.asarray(log.losses),
+         uplink=np.asarray(float(log.meter.uplink_bytes)))
+""".format(n=w.N, k=w.K, top=w.TOP_N, b=w.B, rounds=ROUNDS)
+
+
+def _reference_submesh_round(path):
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": src,
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=2"}
+    subprocess.run([sys.executable, "-c", _SUBMESH_REF, str(path)],
+                   env=env, check=True, timeout=600)
+    with np.load(path) as z:
+        n = len([f for f in z.files if f.startswith("arr_")])
+        return {"leaves": [z[f"arr_{i}"] for i in range(n)],
+                "losses": z["losses"], "uplink": float(z["uplink"])}
+
+
 @pytest.fixture(scope="module")
 def runs(task, tmp_path_factory):
     """Each world's per-rank results (one spawn a world size, both worlds
@@ -95,7 +142,9 @@ def runs(task, tmp_path_factory):
     runs on the same draws (fedldf, setting A, FedADP)."""
     from concurrent.futures import ThreadPoolExecutor
     jobs = {}
-    with ThreadPoolExecutor(len(WORLDS)) as pool:
+    with ThreadPoolExecutor(len(WORLDS) + 1) as pool:
+        sub = pool.submit(_reference_submesh_round,
+                          tmp_path_factory.mktemp("sub") / "ref.npz")
         for d in WORLDS:
             tmp = tmp_path_factory.mktemp(f"world{d}")
             job = {k_: task[k_] for k_ in ("params", "xs", "ys", "parts",
@@ -113,6 +162,7 @@ def runs(task, tmp_path_factory):
         }
         worlds = {d: {"ranks": fut.result(), "ledger": ledger}
                   for d, (fut, ledger) in jobs.items()}
+        ref["sub2"] = sub.result()
     return {"ref": ref, "worlds": worlds}
 
 
@@ -371,3 +421,56 @@ def test_a_rank_that_raises_fails_the_world(tmp_path):
     import torch.multiprocessing as mp
     with pytest.raises(mp.ProcessRaisedException, match="rank 1 fails"):
         tmesh.spawn(w.raise_on_rank_one, 2, store_dir=str(tmp_path))
+
+
+# ----------------------------------------------------------------------
+# a submesh of the world
+# ----------------------------------------------------------------------
+def test_submesh_of_two_in_a_world_of_four(worlds, ref):
+    """``make_client_mesh(2)`` in every rank of the world of 4: ranks 0-1
+    give the 2-rank world's round bit for bit, and the reference's
+    ``make_client_mesh(2)`` round within 2e-5."""
+    two = worlds[2]["ranks"][0]["flat"]
+    want = ref["runs"]["sub2"]
+    for r in worlds[4]["ranks"][:2]:
+        assert r["sub_shape"] == ({"clients": 2}, True)
+        run = r["sub"]
+        _assert_same(run["params"], two["params"])
+        assert run["losses"] == two["losses"]
+        assert run["uplink"] == two["uplink"]
+        got = _leaves(run["params"])
+        assert len(got) == len(want["leaves"])
+        assert max(float(np.abs(a - b).max())
+                   for a, b in zip(got, want["leaves"])) <= PARAM_TOL
+        np.testing.assert_allclose(run["losses"], want["losses"],
+                                   atol=LOSS_TOL, rtol=0)
+        assert run["uplink"] == want["uplink"]
+        assert {op: cb[0] for op, cb in run["counts"].items()
+                if op != "staged" and cb[0]} == {
+                    "all_reduce_flat": ROUNDS, "all_gather_rows": ROUNDS}
+
+
+def test_submesh_grid_of_one_by_two_in_a_world_of_four(worlds, ref):
+    """``make_client_mesh(2, model=2)`` in the world of 4: the 1 x 2 grid
+    of ranks 0-1 is the one-rank mesh's round bit for bit (a 2-D round is
+    the 1-D round of its C rows), and the reference's unsharded round
+    within 2e-5."""
+    jparams, jlog = ref["runs"]["flat"]
+    for r in worlds[4]["ranks"][:2]:
+        assert r["sub_grid_shape"] == ({"clients": 1, "model": 2}, True)
+        run = r["sub_grid"]
+        _assert_same(run["params"], r["sub_one"]["params"])
+        assert run["losses"] == r["sub_one"]["losses"]
+        assert run["uplink"] == r["sub_one"]["uplink"]
+        _near_reference(run, jparams, jlog)
+        assert run["counts"]["all_gather_model"][0] > 0
+
+
+def test_ranks_outside_a_submesh_raise(worlds):
+    for r in worlds[4]["ranks"][2:]:
+        assert r["sub_shape"] == ({"clients": 2}, False)
+        assert r["sub_grid_shape"] == ({"clients": 1, "model": 2}, False)
+        for name in ("sub", "sub_grid"):
+            assert r[name] == (f"rank {r['rank']} is not in this client "
+                               "mesh of ranks 0..1: only they run its "
+                               "rounds")

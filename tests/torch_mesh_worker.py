@@ -211,6 +211,27 @@ def world(rank, task):
                           sh.gather(clients, j).items()}
                          for sh in (full.place(mesh), rep, shd)]
 
+    if d == 4:
+        # submeshes of world ranks 0-1 (every rank builds them: new_group
+        # is collective): the 1-D mesh of 2 on the reference's draws, and
+        # the 1 x 2 grid against the one-rank mesh; ranks 2-3 hold meshes
+        # whose rounds raise
+        for name, mesh_ in (("sub", make_client_mesh(2, device=dev)),
+                            ("sub_grid", make_client_mesh(2, model=2,
+                                                          device=dev))):
+            out[f"{name}_shape"] = (mesh_.shape, mesh_.member)
+            try:
+                out[name] = _run(mesh_, run_training_scan, params, loss_fn,
+                                 data, fl_config(mesh_), rounds=3, seed=0,
+                                 draws=draws, **kw)
+            except ValueError as e:
+                out[name] = str(e)
+        if rank < 2:
+            one = make_client_mesh(1, device=dev)
+            out["sub_one"] = _run(one, run_training_scan, params, loss_fn,
+                                  data, fl_config(one), rounds=3, seed=0,
+                                  draws=draws, **kw)
+
     # hierarchical_psum against a flat all-reduce on random trees, and
     # against the float64 sum of every rank's tree
     trees = [_random_tree(100 + r, dev) for r in range(d)]
@@ -222,6 +243,10 @@ def world(rank, task):
         got = agg.hierarchical_psum(trees[rank], mesh, g)
         res[g] = _flat(got)
     res["flat"] = _flat(agg.mesh_psum(trees[rank], mesh))
+    # the tier-1 reduce over a block of the whole clients axis
+    res["group"] = np.asarray(mesh.group_all_reduce(
+        torch.from_numpy(_flat(trees[rank]).astype(np.float32)).to(dev),
+        d).cpu(), np.float64)
     out["psum"] = {"want": want, "got": res}
 
     # round_comm over local rows and aggregate_stacked(mesh=)
