@@ -266,8 +266,14 @@ cases, a fully masked case a route, and the full-width prefill and decode
 shapes of qwen3-1.7b, hymba-1.5b (G = 5, hd 64), deepseek-moe-16b (G =
 1, hd 128) and seamless-m4t-large-v2 (G = 1, hd 64: a non-causal prefill,
 a cross prefill over a ragged 1500 frames, a decode step and a cross
-decode step over 2048 frames) in bf16 and f32. Phase 9 times the CUDA-core route on the f32
-prefill's own calls.
+decode step over 2048 frames) in bf16 and f32. Phase 2 prints the
+CUDA-core kernel's ``nvcc -Xptxas -v`` registers and spills and, from
+the card, its shared memory and blocks an SM. Each f32 use of the
+CUDA-core route holds its recorded calls to the plain version and times
+them (a ``[times] ... [cuda_core route]`` line): qwen3-1.7b's prefill
+(phase 9), the LoRA layer (13), hymba-1.5b's prefill (14),
+deepseek-moe-16b's at 4 layers (15), seamless-m4t-large-v2's encoder,
+decoder self and cross (16) and hymba-1.5b's local training step (20).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Phases 4-8 cut the data set to 10,000
@@ -284,6 +290,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1305,6 +1312,13 @@ PLAIN_NAMES = ("sqdiff_rowsum", "sqdiff_rowsum_leaves", "masked_accumulate",
                "fused_uplink_ef_leaves", "flash_attention")
 
 
+def core_entry(mangled):
+    """``flash_fwd<T, HD>``'s mangled name as "f32 hd 128" (else as is)."""
+    m = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    return (f"{'f32' if m.group(1) == 'f' else 'bf16'} hd {m.group(2)}"
+            if m else mangled)
+
+
 @contextlib.contextmanager
 def plain_calls_counted():
     """Counts the calls of the kernels' plain versions
@@ -1365,7 +1379,8 @@ def phase20(ctx):
     again as a script), then ``serve_llm``'s fine-tune-then-serve path at
     full width and depth through the example's own functions (b), with
     the hybrid's flash-attention calls of a local step and of its serving
-    held against the plain attention (``ctx["main_path_check"]``).
+    held against the plain attention (``ctx["main_path_check"]``), the
+    local step's also timed (``ctx["core_times"]``).
     Returns the launches of both, by counter."""
     import numpy as np
     import torch
@@ -1506,9 +1521,9 @@ def phase20(ctx):
                  f"{log.meter.uplink_bytes}, expected {want_up}")
 
         if hybrid:
-            # the training calls on the kernel's route against plain
-            ctx["main_path_check"](step_calls, f"{arch} local step",
-                                   "f32")
+            # the training calls on the kernel's route against plain, and
+            # their time
+            ctx["core_times"](step_calls, f"one {arch} f32 local step")
         del step_calls
 
         # serve the fine-tuned model; every step's logits against forward,
@@ -1643,6 +1658,20 @@ def main():
         f"start: " + ", ".join(f"{n} {build_s[n]:.2f}" if n in build_s else
                                f"{n} (built before)"
                                for n in _build.SOURCES))
+    # the CUDA-core route's instantiations as ptxas reports them
+    core = _build.ptxas_report(_build.PTXAS.get("flash_attention", ""))
+    say("[build] flash_attention.cu, nvcc -Xptxas -v: " + ("; ".join(
+        f"{core_entry(e)}: {r} registers, spill stores {st} B, spill loads "
+        f"{ld} B" for e, (r, st, ld) in core.items())
+        or "built before, no report"))
+    say("[build] flash_attention.cu on this card (cudaFuncGetAttributes, "
+        "the occupancy calculator): " + "; ".join(
+            f"{dn} hd {hd}: {o['smem_bytes']:,} B shared a block, "
+            f"{o['blocks_per_sm']} blocks an SM, {o['registers']} registers, "
+            f"{o['local_bytes']} B local"
+            for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))
+            for hd in flash_attention.HEAD_DIMS
+            for o in (flash_attention.core_occupancy(hd, dt),)))
 
     # ---- 3. kernels vs plain on the card -------------------------------
     say(f"[elapsed] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
@@ -2788,6 +2817,25 @@ def main():
             for q, k, v, c in lib_args], reps=5)
         b_ms, b_by = fa_bound(calls, flops_per_s)
         return k_ms, p_ms, l_ms, b_ms, b_by, k_host
+
+    def core_times(calls, use):
+        """The CUDA-core route (f32) on one use's recorded calls: held to
+        the plain version, then timed (a cold L2 from a flush buffer of
+        its own) and printed as a [times] line."""
+        nonlocal flush
+        t_use = time.perf_counter()
+        main_path_check(calls, use, "f32")
+        flush = torch.empty(64 * 2**20, device=dev)
+        try:
+            k_ms, p_ms, l_ms, b_ms, b_by, k_host = route_times(calls,
+                                                               F32_FLOPS)
+        finally:
+            flush = None
+        say(f"[times] flash_attention [cuda_core route], {use} "
+            f"({len(calls)} launches): kernel_ms={k_ms:.4f} bound_ms="
+            f"{b_ms:.4f} ({b_by}) plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+            f"host_enqueue_ms={k_host:.4f}; checked and timed in "
+            f"{time.perf_counter() - t_use:.1f} s ({smi})")
     cfg_bf = get_config(SERVE_ARCH)
     cfg32 = dataclasses.replace(cfg_bf, param_dtype="float32",
                                 compute_dtype="float32")
@@ -3496,8 +3544,13 @@ def main():
         if max(errs) > FLASH_TOL[dn]:
             fail(f"FlashAttentionFn {dn}: gradients differ from autograd of "
                  f"the plain version by {errs}")
+        if dn == "f32":
+            core_calls = [(q, k, v, {"causal": True, "window": 0})]
         del q, k, v, do, leaves, out, plain, out_p, st, out_s, got, want
     del flush
+    core_times(core_calls, f"one LoRA f32 layer's forward (B*K={b_l}, "
+               f"S={s_l}, {h_l}/{kvh_l} heads, hd={hd_l}, causal)")
+    del core_calls
     # the Function's host cost against the bare launcher at a decode step's
     # shape, in turns (why attend launches directly without grad mode)
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -3631,9 +3684,12 @@ def main():
             d_full = float((got - full).abs().max())
             against, d_plain = full, None
             if hybrid:
+                # the prefill's calls are kept for the CUDA-core route
+                recorded_fa = []
                 lg, cache = dec.prefill(params, cfg32, prompts,
                                         max_len=max_len,
-                                        flash_attention=kref.flash_attention)
+                                        flash_attention=recording_fa)
+                core_calls = recorded_fa[:]
                 plain = [lg]
                 for t in range(SERVE_STEPS):
                     lg, cache = dec.decode_step(
@@ -3662,6 +3718,8 @@ def main():
         del full, got, against, top2, gap, same, seq, run32
         if hybrid:
             del plain
+            core_times(core_calls, f"one {arch} f32 parity prefill")
+            del core_calls, recorded_fa
 
         # the chunked SSD against its own recurrence, one full-width layer
         ssd_p = tree_stack_index(params["blocks"], 0)["ssm"]
@@ -3852,7 +3910,9 @@ def main():
         del seq, full, got, top2
         cfg_own = dataclasses.replace(cfg32,
                                       capacity_factor=cfg_bf.capacity_factor)
-        lg, cache = dec.prefill(params, cfg_own, prompts, max_len=max_len)
+        with flash_calls_recorded(MOE_F32_LAYERS) as core_calls:
+            lg, cache = dec.prefill(params, cfg_own, prompts,
+                                    max_len=max_len)
         del cache
         want_lg = tf.forward(params, cfg_own, prompts)[0][:, -1]
         tol_own = SERVE_RTOL * float(want_lg.abs().max())
@@ -3869,6 +3929,9 @@ def main():
     if d_full > tol or bool(bad.any()) or d_own > tol_own:
         fail(f"{MOE_ARCH} f32: the serving path disagrees with forward")
     del gap, same, bad, run32
+    core_times(core_calls, f"one {MOE_ARCH} f32 prefill at "
+               f"{MOE_F32_LAYERS} layers")
+    del core_calls
 
     # moe_fwd against the per-expert loop, one full-width layer, T = B·S
     moe_p = tree_stack_index(params["blocks"], 0)["moe"]
@@ -4093,9 +4156,12 @@ def main():
         same_cross = (torch.equal(cache["cross_k"], cross0[0])
                       and torch.equal(cache["cross_v"], cross0[1]))
         del cache, cross0
+        # the prefill's calls are kept for the CUDA-core route
+        recorded_fa = []
         lg, cache = dec.prefill(params, cfg32, prompts, frames,
                                 max_len=max_len,
-                                flash_attention=kref.flash_attention)
+                                flash_attention=recording_fa)
+        core_calls = recorded_fa[:]
         plain = [lg]
         for t in range(SERVE_STEPS):
             lg, cache = dec.decode_step(params, cfg32,
@@ -4128,6 +4194,11 @@ def main():
         fail(f"{ENCDEC_ARCH} f32: the serving path disagrees with forward or "
              "with the plain attention, or decode wrote the cross K/V")
     del params, plain, got, top2, gap, same, bad, seq, run32
+    for use, calls in (("encoder", core_calls[:nl_enc]),
+                       ("decoder self", core_calls[nl_enc::2]),
+                       ("cross", core_calls[nl_enc + 1::2])):
+        core_times(calls, f"{ENCDEC_ARCH} f32 {use}, one pass")
+    del core_calls, recorded_fa, calls
     torch.cuda.empty_cache()
 
     # bf16 at full depth, timed
@@ -4635,7 +4706,8 @@ def main():
     # ---- 20. the examples, and serve_llm's path at full width -----------
     say(f"[elapsed] phase 20 starts at {time.perf_counter() - t_start:.1f} s")
     counts_20 = phase20({"dev": dev, "smi": smi,
-                         "main_path_check": main_path_check})
+                         "main_path_check": main_path_check,
+                         "core_times": core_times})
 
     kernels = [
         {"name": "sqdiff_rowsum", "route": "cuda",

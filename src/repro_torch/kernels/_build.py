@@ -30,12 +30,19 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
 LAUNCHES: collections.Counter = collections.Counter()
+# ptxas's report (``-Xptxas -v``) of each source compiled by this process
+PTXAS: dict[str, str] = {}
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_USED = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -102,11 +109,29 @@ def build(names=SOURCES) -> dict[str, float]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)   # atomic: concurrent builders are safe
+                PTXAS[name] = log.read_bytes().decode(errors="replace")
             log.unlink(missing_ok=True)
         time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def ptxas_report(text: str) -> dict[str, tuple[int, int, int]]:
+    """``{mangled entry: (registers, spill store bytes, spill load
+    bytes)}`` from ptxas's ``-v`` report of one source."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            entry = props = m.group(1)
+            out[entry] = (0, 0, 0)
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _SPILL.search(line)) and entry and props == entry:
+            out[entry] = (out[entry][0], int(m.group(1)), int(m.group(2)))
+        elif (m := _USED.search(line)) and entry:
+            out[entry] = (int(m.group(1)), *out[entry][1:])
+    return out
 
 
 def load(name: str, **signatures) -> ctypes.CDLL:

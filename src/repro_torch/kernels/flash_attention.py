@@ -111,6 +111,21 @@ def _fn(name: str):
     return fn
 
 
+def core_occupancy(hd: int, dtype: torch.dtype) -> dict[str, int]:
+    """The CUDA-core kernel's instantiation for ``hd`` and ``dtype`` on the
+    current card: shared memory bytes a block, blocks an SM (the occupancy
+    calculator's), registers a thread and local (spilled) bytes a thread."""
+    lib, _ = _fn("cuda_core")
+    query = lib.repro_flash_attention_occupancy
+    query.argtypes = [_I32, _I32, ctypes.POINTER(ctypes.c_int)]
+    query.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, query(hd, _DTYPE_CODES[dtype], out),
+                 "flash_attention (cuda_core occupancy)")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "registers",
+                     "local_bytes"), out))
+
+
 def _sm_count(device: torch.device) -> int:
     n = _SMS.get(device.index)
     if n is None:

@@ -1017,6 +1017,103 @@ def test_cuda_serving_launches_once_per_layer_at_full_depth(cuda):
     assert bool(torch.isfinite(lg).all()) and lg.shape == (2, cfg.vocab_size)
 
 
+# -- the CUDA-core route's tiles (csrc/flash_attention.cu) -----------------
+# kTQ query rows a block, kTK keys a tile, and the ring's stages (K, V)
+CORE_TQ, CORE_TK, CORE_STAGES = 128, 128, 2
+# (hd, dtype, sq, skv, kv_len, group, causal, window)
+CORE_CASES = (
+    # the query tile's edge, one either side
+    [(128, "f32", sq, sq, sq, 2, True, 0)
+     for sq in (CORE_TQ - 1, CORE_TQ, CORE_TQ + 1)]
+    # kv_len 0 and 1, at a key tile's and at the ring's edge, one either side
+    + [(64, "f32", 300, 300, n, 5, causal, 0)
+       for n in (0, 1, CORE_TK - 1, CORE_TK, CORE_TK + 1,
+                 CORE_STAGES * CORE_TK - 1, CORE_STAGES * CORE_TK,
+                 CORE_STAGES * CORE_TK + 1)
+       for causal in (False, True)]
+    # windows that start inside a key tile
+    + [(128, "f32", 300, 300, 300, 8, True, 37),
+       (32, "f32", 300, 300, 300, 1, False, 200),
+       (64, "f32", 257, 300, 290, 2, True, 130)]
+    # every head dim in f32 and the two bf16 ones the route takes, G 1, 2, 5
+    # and 8, causal and not
+    + [(hd, dn, 200, 200, 200, group, causal, 0)
+       for hd, dn in ((16, "f32"), (32, "f32"), (64, "f32"), (128, "f32"),
+                      (16, "bf16"), (32, "bf16"))
+       for group, causal in ((1, True), (2, False), (5, True), (8, False))])
+
+
+@pytest.mark.parametrize("case", CORE_CASES,
+                         ids=[str(i) for i in range(len(CORE_CASES))])
+def test_cuda_flash_core_route_tiles(cuda, case):
+    """The CUDA-core kernel against the plain version at its tiles' edges:
+    Sq and kv_len one either side of a tile and of the ring, kv_len 0
+    (all zeros) and 1, windows inside a tile, G 1 to 8, every head dim."""
+    hd, dn, sq, skv, kv_len, group, causal, window = case
+    q, k, v = _bshd(cuda, 2, sq, 2 * group, 2, skv, hd, dn,
+                    sq + kv_len + group + hd)
+    assert tkf.route(DTYPES[dn], sq, hd) == "cuda_core"
+    kw = {"causal": causal, "window": window, "kv_len": kv_len}
+    got = ops.flash_attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    _close(got, ref.flash_attention(q, k, v, **kw), dn)
+    if kv_len == 0:
+        assert bool((got == 0).all())
+    assert ops.launch_counts()["flash_attention_cuda_core"] == 1
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_flash_core_route_takes_model_views(cuda, hd):
+    """q a (B, S, H, hd) view of a fused (B, S, (H + 2 KV)·hd) projection,
+    k and v slices of a stacked (2, B, S_max, KV, hd) cache: no copies."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    b, sq, h, kvh = 2, 130, 8, 2
+    qkv = torch.randn(b, sq, (h + 2 * kvh) * hd, generator=g, device=cuda)
+    q = qkv[..., :h * hd].view(b, sq, h, hd)
+    cache = torch.randn(2, b, 160, kvh, hd, generator=g, device=cuda)
+    k, v = cache[0][:, :sq], cache[1][:, :sq]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    for kw in ({"causal": True, "window": 0},
+               {"causal": False, "window": 45, "kv_len": 101}):
+        _close(ops.flash_attention(q, k, v, **kw),
+               ref.flash_attention(q, k, v, **kw), "f32")
+    assert ops.launch_counts()["flash_attention_cuda_core"] == 2
+
+
+def test_cuda_flash_core_rows_are_independent_of_the_launch(cuda):
+    """A row's bits depend on its q, the keys it sees and the masks only:
+    two launches agree bit for bit, one (b, h) alone (a strided view)
+    equals it inside a batch of 8, and the first rows of a shorter query
+    equal the same rows of the longer one."""
+    b, sq, h, kvh, hd = 8, 300, 4, 2, 128
+    q, k, v = _bshd(cuda, b, sq, h, kvh, sq, hd, "f32", 11)
+    for kw in ({"causal": True, "window": 0},
+               {"causal": False, "window": 50, "kv_len": 250}):
+        full = ops.flash_attention(q, k, v, **kw)
+        assert torch.equal(full, ops.flash_attention(q, k, v, **kw))
+        bi, hi = 5, 3
+        alone = ops.flash_attention(
+            q[bi:bi + 1, :, hi:hi + 1], k[bi:bi + 1, :, hi // 2:hi // 2 + 1],
+            v[bi:bi + 1, :, hi // 2:hi // 2 + 1], **kw)
+        assert torch.equal(alone[0, :, 0], full[bi, :, hi])
+        shorter = ops.flash_attention(q[:, :CORE_TQ + 37], k, v, **kw)
+        assert torch.equal(shorter, full[:, :CORE_TQ + 37])
+        _close(full, ref.flash_attention(q, k, v, **kw), "f32")
+    assert ops.launch_counts()["flash_attention_cuda_core"] == 8
+
+
+def test_cuda_flash_core_blocks_fit_without_spills(cuda):
+    """Every instantiation keeps its registers (at most 255, nothing
+    spilled) and its shared memory (at most 227 KB a block), and a block
+    of 8 warps fits an SM."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in tkf.HEAD_DIMS:
+            occ = tkf.core_occupancy(hd, dtype)
+            assert occ["local_bytes"] == 0 and occ["registers"] <= 255
+            assert 0 < occ["smem_bytes"] <= 232_448
+            assert occ["blocks_per_sm"] >= 1
+
+
 # -- the two new routes: split-KV decode and tensor-core prefill ----------
 def _bshd(device, b, sq, h, kvh, skv, hd, dtype, seed):
     """(B, S, H, hd) q and (B, Skv, KV, hd) k, v."""

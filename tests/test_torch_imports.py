@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package ``repro``."""
+"""The PyTorch port stands alone: no file of ``src/repro_torch``, not
+``chip_smoke.py`` and no script under ``tools/`` imports JAX or the JAX
+package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

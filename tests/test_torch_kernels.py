@@ -141,3 +141,63 @@ def test_kernel_launchers_refuse_cpu_tensors(launch):
     with pytest.raises(ValueError, match="CUDA"):
         launch(torch.ones(2, 8))
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z4fwdIfLi128EEv4Args' for 'sm_90a'
+ptxas info    : Function properties for _Z4fwdIfLi128EEv4Args
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    8 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Compiling entry function '_Z4fwdIfLi16EEv4Args' for 'sm_90a'
+ptxas info    : Function properties for _Z4fwdIfLi16EEv4Args
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_registers_and_spills_an_entry():
+    """``_build.ptxas_report`` reads ``nvcc -Xptxas -v``: each entry's
+    registers and spill bytes, a device function's spills not counted."""
+    from repro_torch.kernels import _build
+    assert _build.ptxas_report(PTXAS_LOG) == {
+        "_Z4fwdIfLi128EEv4Args": (168, 0, 0),
+        "_Z4fwdIfLi16EEv4Args": (255, 4, 12)}
+    assert _build.ptxas_report("") == {}
+    assert "-Xptxas" in _build.NVCC_FLAGS and "-v" in _build.NVCC_FLAGS
+
+
+def _flash_core_ab():
+    """``tools/flash_core_ab.py`` as a module (a script, not a package)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "flash_core_ab.py"
+    spec = importlib.util.spec_from_file_location("flash_core_ab", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SASS = """\
+\t\tFunction : _Z3fwdv
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2+0x10] ;
+        /*0020*/                   FFMA R8, R4, R5.reuse, R8 ;
+        /*0030*/                   FFMA R9, R6, R5, R9 ;
+        /*0040*/                   LDS R10, [R2] ;
+        /*0050*/              @P0 BRA 0x10 ;
+        /*0060*/                   EXIT ;
+"""
+
+
+def test_flash_core_ab_counts_a_loop_of_the_sass():
+    """The timing script's SASS reader finds a loop (a branch back) and
+    counts its instructions by kind; without a card the script exits 1."""
+    ab = _flash_core_ab()
+    assert ab.sass_loops(SASS) == {"_Z3fwdv": [
+        {"first": "0x10", "last": "0x50", "insns": 5, "LDS.128": 1,
+         "FFMA": 2, "LDS": 1}]}
+    if not torch.cuda.is_available():
+        assert ab.main(["--baseline", "."]) == 1
