@@ -34,6 +34,7 @@ from torch.func import grad_and_value
 
 from repro_torch.core.partition import ParamPartition
 from repro_torch.optim.opt import Optimizer, sgd
+from repro_torch.telemetry.profiling import span
 
 Pytree = Any
 LossFn = Callable[[Pytree, dict], torch.Tensor]
@@ -58,29 +59,39 @@ def make_local_update(loss_fn: LossFn, opt: Optimizer, local_steps: int = 1,
     the gradient's memory there either; the activation-memory lever is
     ``ModelConfig.remat_blocks`` (a recompute around each block,
     ``models/transformer.py``).
+
+    Spans (``telemetry.profiling.span``): ``local_update`` a call, inside
+    it ``forward`` (the loss) and ``sgd`` (``opt.update``) a step; the
+    backward is what ``local_update`` enqueues outside both.
     """
     del remat
 
     def run(vg, start, batch):
-        params, ostate = start, opt.init(start)
-        losses = []
-        with _without_cudnn():
-            for _ in range(local_steps):
-                grads, loss = vg(params, batch)
-                params, ostate = opt.update(grads, ostate, params)
-                losses.append(loss)
-        return params, torch.stack(losses).mean()
+        with span("local_update"):
+            params, ostate = start, opt.init(start)
+            losses = []
+            with _without_cudnn():
+                for _ in range(local_steps):
+                    grads, loss = vg(params, batch)
+                    with span("sgd"):
+                        params, ostate = opt.update(grads, ostate, params)
+                    losses.append(loss)
+            return params, torch.stack(losses).mean()
+
+    def forward(params: Pytree, batch: dict):
+        with span("forward"):
+            return loss_fn(params, batch)
 
     if partition is not None:
         def local_update_part(trainable: Pytree, batch: dict,
                               frozen: Pytree):
             return run(grad_and_value(
-                lambda tr, b: loss_fn(partition.merge(tr, frozen), b)),
+                lambda tr, b: forward(partition.merge(tr, frozen), b)),
                 trainable, batch)
 
         return local_update_part
 
-    vg = grad_and_value(loss_fn)
+    vg = grad_and_value(forward)
 
     def local_update(global_params: Pytree, batch: dict):
         return run(vg, global_params, batch)

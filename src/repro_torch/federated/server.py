@@ -73,6 +73,16 @@ losses in the block's one pull. ``telemetry=None`` leaves every round,
 block and printed line as it is without telemetry; with it on, the
 trajectories are the same bit for bit (taps only read).
 
+Spans (:func:`repro_torch.telemetry.profiling.span`, recorded only inside
+``profiling.recording()``) mark where the engine (``engine.enter``,
+``engine.draws``, ``engine.round``, ``engine.pull``, ``engine.exit``) and
+the rounds (``round.local_training``, ``round.divergence``,
+``round.select``, ``round.aggregate`` or ``round.uplink``,
+``round.update_state``, ``round.taps``, the state's ``round.state_view``
+and ``round.state_scatter``; the scan round's ``round.phase1``,
+``round.phase2`` and ``round.finalize``) enqueue their work. Off, a span
+is one flag check; on, it reads the clock and nothing on the device.
+
 Both drivers scale past one device over a client mesh
 (``FLConfig(mesh=make_client_mesh(D))``, :mod:`repro_torch.launch.mesh`):
 one process (rank) a device, each running the same driver. Every rank
@@ -136,6 +146,7 @@ from repro_torch.optim.opt import Optimizer, sgd
 from repro_torch.telemetry import (ProgressSink, RoundLedger,
                                    TelemetryConfig)
 from repro_torch.telemetry import profiling as prof_mod
+from repro_torch.telemetry.profiling import span
 from repro_torch.telemetry import taps as taps_mod
 
 Pytree = Any
@@ -437,15 +448,19 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
     def round_fn(params: Pytree, batch: dict, data_sizes: torch.Tensor,
                  state: Optional[dict] = None, uniform=None,
                  frozen: Optional[Pytree] = None):
-        locals_, losses = torch.func.vmap(
-            _with_frozen(local_update, frozen), in_dims=(None, 0))(
-                params, batch)
+        with span("round.local_training"):
+            locals_, losses = torch.func.vmap(
+                _with_frozen(local_update, frozen), in_dims=(None, 0))(
+                    params, batch)
         # Eq. 3 on the client-stacked locals: one call over every leaf
-        divs = (umap.divergence(locals_, params)
-                if strategy.needs_divergence else None)
-        selection = strategy.select_with_state(
-            state, divs, uniform, k, umap.num_units, flcfg.top_n,
-            data_sizes.device)
+        divs = None
+        if strategy.needs_divergence:
+            with span("round.divergence"):
+                divs = umap.divergence(locals_, params)
+        with span("round.select"):
+            selection = strategy.select_with_state(
+                state, divs, uniform, k, umap.num_units, flcfg.top_n,
+                data_sizes.device)
         res_rows = _residual_rows(strategy, state)
 
         wire = None
@@ -454,17 +469,19 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
             # deltas into PackedPayload buffers and reduces them through
             # the fused uplink kernels: one launch a round over every
             # leaf, or one a leaf with error feedback
-            new_params, new_rows, wire = strategy.uplink_round(
-                locals_, params, umap, selection, divs, data_sizes,
-                res_rows)
-            comm = strategy.comm_profile(
-                selection, umap, unit_bytes_override=wire["unit_bytes"])
+            with span("round.uplink"):
+                new_params, new_rows, wire = strategy.uplink_round(
+                    locals_, params, umap, selection, divs, data_sizes,
+                    res_rows)
+                comm = strategy.comm_profile(
+                    selection, umap, unit_bytes_override=wire["unit_bytes"])
         else:
-            uploads, new_rows = _transform_uploads(
-                strategy, locals_, params, umap, res_rows, selection)
-            new_params = strategy.aggregate(uploads, umap, selection,
-                                            data_sizes, params)
-            comm = strategy.comm_profile(selection, umap)
+            with span("round.aggregate"):
+                uploads, new_rows = _transform_uploads(
+                    strategy, locals_, params, umap, res_rows, selection)
+                new_params = strategy.aggregate(uploads, umap, selection,
+                                                data_sizes, params)
+                comm = strategy.comm_profile(selection, umap)
         if strategy.tracks_residuals:
             state = {**state, "client": {**state["client"],
                                          "residual": new_rows}}
@@ -472,16 +489,18 @@ def build_round_vmap(loss_fn, umap: UnitMap, flcfg: FLConfig,
                    "selection": selection, "divergence": divs,
                    "wire": wire}
         if state is not None:
-            metrics["state"] = strategy.update_state(state, selection, divs,
-                                                     umap, uniform=uniform)
+            with span("round.update_state"):
+                metrics["state"] = strategy.update_state(
+                    state, selection, divs, umap, uniform=uniform)
         if taps_on:
             # client rows in the post-update_state view hold the updated
             # residuals (update_state keeps entries it does not own)
-            metrics["taps"] = taps_mod.collect(
-                strategy, metrics.get("state"), selection, divs, umap,
-                extra=(None if wire is None else
-                       {"wire_unit_bytes": wire["unit_bytes"],
-                        "wire_bits": wire["bits"]}))
+            with span("round.taps"):
+                metrics["taps"] = taps_mod.collect(
+                    strategy, metrics.get("state"), selection, divs, umap,
+                    extra=(None if wire is None else
+                           {"wire_unit_bytes": wire["unit_bytes"],
+                            "wire_bits": wire["bits"]}))
         return new_params, metrics
 
     return round_fn
@@ -520,42 +539,50 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
         # ---- phase 1: divergence feedback (only if the policy needs it)
         divs = losses1 = None
         if strategy.needs_divergence:
-            rows, losses1 = [], []
-            for batch_k in client_batches:
-                local, loss = local_update(params, batch_k)
-                rows.append(umap.divergence(local, params))
-                losses1.append(loss)
-            divs, losses1 = torch.stack(rows), torch.stack(losses1)
+            with span("round.phase1"):
+                rows, losses1 = [], []
+                for batch_k in client_batches:
+                    local, loss = local_update(params, batch_k)
+                    with span("round.divergence"):
+                        rows.append(umap.divergence(local, params))
+                    losses1.append(loss)
+                divs, losses1 = torch.stack(rows), torch.stack(losses1)
 
-        selection = strategy.select_with_state(
-            state, divs, uniform, k, umap.num_units, flcfg.top_n,
-            data_sizes.device)
+        with span("round.select"):
+            selection = strategy.select_with_state(
+                state, divs, uniform, k, umap.num_units, flcfg.top_n,
+                data_sizes.device)
 
         losses2 = []
         if strategy.eq5_weighted:
-            w, denom = agg.unit_weights(selection, data_sizes)
-            frac = w / torch.where(denom > 0, denom,
-                                   torch.ones_like(denom))[None, :]  # (K,U)
-
             # ---- phase 2: recompute local training, stream layers in
-            acc = agg.streaming_init(params)
-            for batch_k, frac_k in zip(client_batches, frac):
-                local, loss = local_update(params, batch_k)
-                agg.streaming_add(acc, local, umap, frac_k)
-                losses2.append(loss)
-            new_params = agg.streaming_finalize(acc, umap, denom, params)
+            with span("round.phase2"):
+                w, denom = agg.unit_weights(selection, data_sizes)
+                frac = w / torch.where(
+                    denom > 0, denom, torch.ones_like(denom))[None, :]  # (K,U)
+                acc = agg.streaming_init(params)
+                for batch_k, frac_k in zip(client_batches, frac):
+                    local, loss = local_update(params, batch_k)
+                    with span("round.aggregate"):
+                        agg.streaming_add(acc, local, umap, frac_k)
+                    losses2.append(loss)
+            with span("round.finalize"):
+                new_params = agg.streaming_finalize(acc, umap, denom,
+                                                    params)
         else:
             # ---- phase 2 (not Eq. 5, e.g. FedADP): train one after
             # another, stack the locals, and call the same stacked-clients
             # aggregate hook as the vmap round
-            locals_ = []
-            for batch_k in client_batches:
-                local, loss = local_update(params, batch_k)
-                locals_.append(local)
-                losses2.append(loss)
-            stacked = tree_map(lambda *ls: torch.stack(ls), *locals_)
-            new_params = strategy.aggregate(stacked, umap, selection,
-                                            data_sizes, params)
+            with span("round.phase2"):
+                locals_ = []
+                for batch_k in client_batches:
+                    local, loss = local_update(params, batch_k)
+                    locals_.append(local)
+                    losses2.append(loss)
+            with span("round.aggregate"):
+                stacked = tree_map(lambda *ls: torch.stack(ls), *locals_)
+                new_params = strategy.aggregate(stacked, umap, selection,
+                                                data_sizes, params)
 
         loss = (losses1 if losses1 is not None
                 else torch.stack(losses2)).mean()
@@ -563,11 +590,13 @@ def build_round_scan(loss_fn, umap: UnitMap, flcfg: FLConfig,
                    "comm": strategy.comm_profile(selection, umap),
                    "selection": selection, "divergence": divs}
         if state is not None:
-            metrics["state"] = strategy.update_state(state, selection, divs,
-                                                     umap, uniform=uniform)
+            with span("round.update_state"):
+                metrics["state"] = strategy.update_state(
+                    state, selection, divs, umap, uniform=uniform)
         if taps_on:
-            metrics["taps"] = taps_mod.collect(
-                strategy, metrics.get("state"), selection, divs, umap)
+            with span("round.taps"):
+                metrics["taps"] = taps_mod.collect(
+                    strategy, metrics.get("state"), selection, divs, umap)
         return new_params, metrics
 
     return round_fn
@@ -673,65 +702,76 @@ def _build_round_vmap_sharded(local_update, umap: UnitMap, flcfg: FLConfig,
         shard = params
         if m > 1:
             params, frozen, state = layout.gather(params, frozen, state)
-        locals_, losses = torch.func.vmap(
-            _with_frozen(local_update, frozen), in_dims=(None, 0))(
-                params, batch)
+        with span("round.local_training"):
+            locals_, losses = torch.func.vmap(
+                _with_frozen(local_update, frozen), in_dims=(None, 0))(
+                    params, batch)
         divs = None
         if strategy.needs_divergence:
-            divs = mesh.all_gather_rows(umap.divergence(locals_, params))
+            with span("round.divergence"):
+                divs = mesh.all_gather_rows(umap.divergence(locals_, params))
         dev = data_sizes.device
-        selection = strategy.select_with_state(
-            state, divs, uniform, k, umap.num_units, flcfg.top_n, dev)
+        with span("round.select"):
+            selection = strategy.select_with_state(
+                state, divs, uniform, k, umap.num_units, flcfg.top_n, dev)
         sel_loc = local_rows(selection, mesh.client_rank, kloc)
         res_rows = _residual_rows(strategy, state)
 
         wire = None
-        if strategy.packed_upload:
-            parts, denom_loc, new_rows, wire = strategy.uplink_psum_parts(
-                locals_, params, umap, sel_loc, divs, data_sizes, res_rows)
-            comm = strategy.comm_profile(
-                selection, umap, unit_bytes_override=wire["unit_bytes"])
-        else:
-            uploads, new_rows = _transform_uploads(
-                strategy, locals_, params, umap, res_rows, sel_loc)
-            parts, denom_loc = strategy.psum_parts(
-                uploads, umap, sel_loc, data_sizes, global_params=params)
-            comm = strategy.comm_profile(selection, umap)
-        if strategy.tracks_residuals:
-            state = {**state, "client": {**state["client"],
-                                         "residual": new_rows}}
-        if m > 1:
-            parts, denom_loc = layout.slice_parts(parts, denom_loc)
-        # the taps' client-state partials (the rank's rows) ride the same
-        # sum: taps add no collective
-        client_sq = {}
-        if taps_on and state is not None and state.get("client"):
-            client_sq = taps_mod.client_sqsums(state["client"])
-        sums = agg.mesh_psum({"parts": parts, "denom": denom_loc,
-                              "loss": losses.sum(), "client_sq": client_sq},
-                             mesh, gs if hier else 0)
-        new_params = strategy.psum_finalize(sums["parts"], sums["denom"],
-                                            umap, shard, shard)
+        # the additive halves, the one cross-rank sum and the division
+        with span("round.uplink" if strategy.packed_upload
+                  else "round.aggregate"):
+            if strategy.packed_upload:
+                parts, denom_loc, new_rows, wire = \
+                    strategy.uplink_psum_parts(locals_, params, umap,
+                                               sel_loc, divs, data_sizes,
+                                               res_rows)
+                comm = strategy.comm_profile(
+                    selection, umap, unit_bytes_override=wire["unit_bytes"])
+            else:
+                uploads, new_rows = _transform_uploads(
+                    strategy, locals_, params, umap, res_rows, sel_loc)
+                parts, denom_loc = strategy.psum_parts(
+                    uploads, umap, sel_loc, data_sizes, global_params=params)
+                comm = strategy.comm_profile(selection, umap)
+            if strategy.tracks_residuals:
+                state = {**state, "client": {**state["client"],
+                                             "residual": new_rows}}
+            if m > 1:
+                parts, denom_loc = layout.slice_parts(parts, denom_loc)
+            # the taps' client-state partials (the rank's rows) ride the
+            # same sum: taps add no collective
+            client_sq = {}
+            if taps_on and state is not None and state.get("client"):
+                client_sq = taps_mod.client_sqsums(state["client"])
+            sums = agg.mesh_psum({"parts": parts, "denom": denom_loc,
+                                  "loss": losses.sum(),
+                                  "client_sq": client_sq},
+                                 mesh, gs if hier else 0)
+            new_params = strategy.psum_finalize(sums["parts"], sums["denom"],
+                                                umap, shard, shard)
         for name, v in tier_bytes.items():
             comm[name] = torch.full((), v, dtype=torch.float32, device=dev)
         metrics = {"loss": sums["loss"] / k, "comm": comm,
                    "selection": selection, "divergence": divs,
                    "wire": wire}
         if state is not None:
-            state = strategy.update_state(state, selection, divs, umap,
-                                          uniform=uniform)
-            if m > 1:
-                state = layout.slice_state(state)
-            metrics["state"] = _gather_client_rows(state, mesh)
+            with span("round.update_state"):
+                state = strategy.update_state(state, selection, divs, umap,
+                                              uniform=uniform)
+                if m > 1:
+                    state = layout.slice_state(state)
+                metrics["state"] = _gather_client_rows(state, mesh)
         if taps_on:
             # the client norms from the summed partials ({} without
             # client state), never from the gathered rows
-            metrics["taps"] = taps_mod.collect(
-                strategy, metrics.get("state"), selection, divs, umap,
-                client_sq=sums["client_sq"],
-                extra=(None if wire is None else
-                       {"wire_unit_bytes": wire["unit_bytes"],
-                        "wire_bits": wire["bits"]}))
+            with span("round.taps"):
+                metrics["taps"] = taps_mod.collect(
+                    strategy, metrics.get("state"), selection, divs, umap,
+                    client_sq=sums["client_sq"],
+                    extra=(None if wire is None else
+                           {"wire_unit_bytes": wire["unit_bytes"],
+                            "wire_bits": wire["bits"]}))
         return new_params, metrics
 
     return round_fn
@@ -969,10 +1009,13 @@ def _step(round_fn, params: Pytree, state: Optional[dict], batch: dict,
         params, metrics = round_fn(params, batch, sizes, uniform=uniform,
                                    frozen=frozen)
         return params, None, metrics
-    params, metrics = round_fn(params, batch, sizes,
-                               _state_round_view(state, clients[rows]),
-                               uniform, frozen=frozen)
-    return params, _state_scatter(state, metrics["state"], clients), metrics
+    with span("round.state_view"):
+        view = _state_round_view(state, clients[rows])
+    params, metrics = round_fn(params, batch, sizes, view, uniform,
+                               frozen=frozen)
+    with span("round.state_scatter"):
+        state = _state_scatter(state, metrics["state"], clients)
+    return params, state, metrics
 
 
 def _rank_rows(flcfg: FLConfig) -> slice:
@@ -1198,7 +1241,6 @@ def run_training(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     params, frozen, state, layout = _place(strategy, params, frozen, flcfg,
                                            server_state, device)
     round_fn = build_round_fn(loss_fn, umap, flcfg, layout=layout)
-    prof_mod.note_engine_cache("round", hit=False)
     draws = draws if draws is not None else KeyedDraws(seed)
     n_, k_, b_ = (flcfg.num_clients, flcfg.clients_per_round,
                   flcfg.batch_per_client)
@@ -1366,32 +1408,35 @@ def _build_block_fn(loss_fn, umap: UnitMap, flcfg: FLConfig,
                   frozen: Optional[Pytree] = None):
         params, state, acc = carry
         device = all_sizes.device
-        rds = [draws(t) for t in range(t0, t0 + num)]
-        clients = torch.stack([rd.clients(n_, k_, shards.num_groups)
-                               .to(torch.int64) for rd in rds])  # (num, K)
-        _check_rank_clients(flcfg, clients, rows)
-        # every rank draws all K clients' indices (one stream) and copies
-        # its own rows' (num, K/D, B)
-        j = torch.stack([rd.indices(host_sizes[c], b_).to(torch.int64)
-                         for rd, c in zip(rds, clients)])[:, rows]
-        # one copy of the whole block's draws
-        drawn = host_to_device(torch.cat([clients.reshape(-1),
-                                          j.reshape(-1)]), device)
-        clients_d = drawn[:clients.numel()].view(clients.shape)
-        j_d = drawn[clients.numel():].view(j.shape)
+        with span("engine.draws"):
+            rds = [draws(t) for t in range(t0, t0 + num)]
+            clients = torch.stack([rd.clients(n_, k_, shards.num_groups)
+                                   .to(torch.int64) for rd in rds])  # (num, K)
+            _check_rank_clients(flcfg, clients, rows)
+            # every rank draws all K clients' indices (one stream) and
+            # copies its own rows' (num, K/D, B)
+            j = torch.stack([rd.indices(host_sizes[c], b_).to(torch.int64)
+                             for rd, c in zip(rds, clients)])[:, rows]
+            # one copy of the whole block's draws
+            drawn = host_to_device(torch.cat([clients.reshape(-1),
+                                              j.reshape(-1)]), device)
+            clients_d = drawn[:clients.numel()].view(clients.shape)
+            j_d = drawn[clients.numel():].view(j.shape)
         losses = torch.empty(num, dtype=torch.float32, device=device)
         uplink = torch.empty(num, dtype=torch.float32, device=device)
         outs = []
         for i, rd in enumerate(rds):
-            idx = clients_d[i]
-            params, state, metrics = _step(
-                round_fn, params, state, shards.gather(idx[rows], j_d[i]),
-                all_sizes[idx[rows]], idx, rd, device, frozen, rows)
-            acc = comm_mod.comm_acc_update(acc, metrics["comm"])
-            losses[i] = metrics["loss"]
-            uplink[i] = acc["uplink_bytes"]
-            if tele is not None:
-                outs.append(_round_outputs(metrics, tele))
+            with span("engine.round"):
+                idx = clients_d[i]
+                params, state, metrics = _step(
+                    round_fn, params, state,
+                    shards.gather(idx[rows], j_d[i]), all_sizes[idx[rows]],
+                    idx, rd, device, frozen, rows)
+                acc = comm_mod.comm_acc_update(acc, metrics["comm"])
+                losses[i] = metrics["loss"]
+                uplink[i] = acc["uplink_bytes"]
+                if tele is not None:
+                    outs.append(_round_outputs(metrics, tele))
         per_round = {"loss": losses, "uplink_bytes": uplink}
         if outs:
             per_round.update(tree_map(lambda *ls: torch.stack(ls), *outs))
@@ -1435,18 +1480,18 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
     :func:`run_training`.
     """
     device = _device_of(device, flcfg)
-    params, frozen, pinfo = _split(
-        tree_map(lambda l: l.to(device), params), flcfg)
-    umap = UnitMap.build(params)
-    shards = _device_shards(fldata, device, flcfg)
-    strategy = make_strategy(flcfg)
-    params, frozen, state0, layout = _place(strategy, params, frozen, flcfg,
-                                            server_state, device)
-    run_block = _build_block_fn(loss_fn, umap, flcfg, layout)
-    prof_mod.note_engine_cache("block", hit=False)
-    carry = (params, state0, comm_mod.comm_acc_init(device))
-    all_sizes = shards.data_sizes()
-    host_sizes = shards.part_sizes.cpu()
+    with span("engine.enter"):
+        params, frozen, pinfo = _split(
+            tree_map(lambda l: l.to(device), params), flcfg)
+        umap = UnitMap.build(params)
+        shards = _device_shards(fldata, device, flcfg)
+        strategy = make_strategy(flcfg)
+        params, frozen, state0, layout = _place(strategy, params, frozen,
+                                                flcfg, server_state, device)
+        run_block = _build_block_fn(loss_fn, umap, flcfg, layout)
+        carry = (params, state0, comm_mod.comm_acc_init(device))
+        all_sizes = shards.data_sizes()
+        host_sizes = shards.part_sizes.cpu()
     draws = draws if draws is not None else KeyedDraws(seed)
     log = TrainLog()
     sink, win, ledger, sample_sys = _telemetry(
@@ -1466,7 +1511,8 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
                                          num, frozen)
             # the block's one host pull (one copy a dtype: a single f32
             # copy of losses, uplink, comm, taps and selection)
-            host = _pull(per_round)[0]
+            with span("engine.pull"):
+                host = _pull(per_round)[0]
             losses, uplink = host["loss"], host["uplink_bytes"]
             # the pull synced the block, so its wall time is the block's
             # time; a round's is the block's over num
@@ -1507,9 +1553,10 @@ def run_training_scan(params: Pytree, loss_fn, fldata, flcfg: FLConfig,
         win.close()
         if ledger is not None:
             ledger.close()
-    params, final_state, acc = carry
-    log.meter = comm_mod.CommMeter.from_accumulator(acc)
-    log.final_state = final_state
-    if whole is None:
-        whole = _whole(params, frozen, flcfg, layout)
+    with span("engine.exit"):
+        params, final_state, acc = carry
+        log.meter = comm_mod.CommMeter.from_accumulator(acc)
+        log.final_state = final_state
+        if whole is None:
+            whole = _whole(params, frozen, flcfg, layout)
     return whole, log

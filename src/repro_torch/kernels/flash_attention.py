@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.telemetry.profiling import span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -297,11 +298,13 @@ class FlashAttentionFn(torch.autograd.Function):
         # once differentiable: detached, the backward's intermediates (the
         # recomputed probabilities) are freed as it goes, where
         # torch.func.grad's create_graph=True would keep them to the end
-        q, k, v, out = (t.detach() for t in ctx.saved_tensors)
-        causal, window, kv_len = ctx.masks
-        dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout.detach(),
-                                              causal=causal, window=window,
-                                              kv_len=kv_len)
+        # route 5d; on the card autograd runs it on its device thread
+        with span("attention.bwd"):
+            q, k, v, out = (t.detach() for t in ctx.saved_tensors)
+            causal, window, kv_len = ctx.masks
+            dq, dk, dv = _ref.flash_attention_bwd(
+                q, k, v, out, dout.detach(), causal=causal, window=window,
+                kv_len=kv_len)
         return dq, dk, dv, None, None, None
 
     @staticmethod

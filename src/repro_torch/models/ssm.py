@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import _normal, init_dense, lora_dense, rms_norm
+from repro_torch.telemetry.profiling import span
 
 
 def init_ssm(generator: torch.Generator, cfg: ModelConfig, device,
@@ -91,7 +92,12 @@ def ssd_fwd(p, xin: torch.Tensor, cfg: ModelConfig,
             return_cache: bool = False):
     """Full-sequence chunked SSD. xin: (B, S, D) -> (B, S, D)[, cache]; the
     cache is ``{"conv": (B, W-1, di+2n) raw tail, "state": (B, H, N, P)
-    f32}``."""
+    f32}``. Enqueued inside the span ``ssd.fwd``."""
+    with span("ssd.fwd"):
+        return _ssd_fwd(p, xin, cfg, return_cache)
+
+
+def _ssd_fwd(p, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool):
     bsz, s, _ = xin.shape
     di, n, h, pdim, q = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                          cfg.ssm_head_dim, cfg.ssm_chunk)

@@ -16,9 +16,8 @@ from their default metrics into structured observability:
   opened in append mode, so a run resumed through
   ``start_round``/``server_state`` continues a contiguous ledger;
 - **profiling hooks**: a ``torch.profiler`` trace window over a round
-  range (``profile_rounds``), per-round wall-clock and peak device memory
-  (``sample_system``), and the engine-cache counters of
-  :mod:`repro_torch.telemetry.profiling`;
+  range (``profile_rounds``) and per-round wall-clock and peak device
+  memory (``sample_system``);
 - a **verbosity-controlled progress sink** (``verbosity``): ``quiet`` /
   ``human`` (the one-line-per-eval format of ``verbose=True``) /
   ``structured`` (JSON lines).

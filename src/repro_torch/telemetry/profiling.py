@@ -1,19 +1,24 @@
-"""Profiling hooks: trace windows, engine-cache counters, system sampling,
-port of ``repro.telemetry.profiling``.
+"""Profiling hooks: program spans, trace windows, system sampling, port of
+``repro.telemetry.profiling``.
 
+- **program spans** — :func:`span` and :func:`recording`. ``with
+  span(name):`` marks where the engine, the round and the local update
+  enqueue their work (the names are listed in PERF.md). Off, which is
+  the default, a span is one module-level check and a shared no-op
+  object: no clock read, no allocation, no device work. Inside ``with
+  recording() as spans:`` each span appends ``(path, start_ns, end_ns,
+  thread_id)`` to ``spans`` as it closes; ``path`` joins the names of the
+  spans open on that thread with ``/``. The stamps are ``time.time_ns()``,
+  the wall clock of ``torch.profiler``'s records, so a profile of the
+  card can give each kernel to the span that launched it. A span never
+  synchronises the device or reads a tensor, so it times the host's
+  enqueue, not the device's work.
 - :class:`ProfileWindow` — a ``torch.profiler`` trace over an absolute
   round range (``TelemetryConfig.profile_rounds``), written as one Chrome
   trace file a window. The host driver opens and closes it exactly at the
   window's bounds; the engine snaps it outward to eval-block bounds (a
   block is enqueued as a whole). Profiler failures give a one-time
   warning: tracing is observability, never a dependency of the rounds.
-- **engine-cache counters** — :func:`note_engine_cache`,
-  :func:`engine_cache_stats`. The reference counts the builds and hits of
-  its compiled-callable cache. The port has no such cache yet (it waits
-  for CUDA graphs of a round, ROADMAP): each ``run_training`` call builds
-  its round function once (``round_builds``) and each
-  ``run_training_scan`` call its block function once (``block_builds``),
-  and nothing is ever a hit (no ``*_hits`` key appears).
 - :func:`device_memory_peak` — the peak bytes the caching allocator has
   handed out on a CUDA device since the process started (or the last
   ``torch.cuda.reset_peak_memory_stats``), as the reference's
@@ -21,34 +26,67 @@ port of ``repro.telemetry.profiling``.
 """
 from __future__ import annotations
 
-import collections
+import contextlib
 import os
 import sys
+import threading
+import time
 from typing import Optional
 
 import torch
 
 # ----------------------------------------------------------------------
-# Engine-cache counters
+# Program spans
 # ----------------------------------------------------------------------
-_CACHE_EVENTS: "collections.Counter[str]" = collections.Counter()
+_SPANS: Optional[list] = None     # the open recording's list; None = off
+_OPEN = threading.local()         # .names: the spans open on this thread
+_NO_SPAN = contextlib.nullcontext()   # every span while the recorder is off
 
 
-def note_engine_cache(kind: str, *, hit: bool) -> None:
-    """Record one build (``hit=False``) or reuse of an engine function:
-    ``kind`` is ``"round"`` (the host driver's round function) or
-    ``"block"`` (the engine's block function)."""
-    _CACHE_EVENTS[f"{kind}_{'hits' if hit else 'builds'}"] += 1
+class _Span:
+    __slots__ = ("name", "out", "path", "start")
+
+    def __init__(self, name: str, out: list):
+        self.name, self.out = name, out
+
+    def __enter__(self):
+        names = getattr(_OPEN, "names", None)
+        if names is None:
+            names = _OPEN.names = []
+        names.append(self.name)
+        self.path = "/".join(names)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _OPEN.names.pop()
+        self.out.append((self.path, self.start, end, threading.get_ident()))
+        return False
 
 
-def engine_cache_stats() -> dict:
-    """Cumulative ``<kind>_builds`` / ``<kind>_hits`` counts since the
-    last reset."""
-    return dict(_CACHE_EVENTS)
+def span(name: str):
+    """A context manager over the host's enqueue of one piece of work:
+    recorded inside :func:`recording`, the shared no-op otherwise."""
+    if _SPANS is None:
+        return _NO_SPAN
+    return _Span(name, _SPANS)
 
 
-def reset_engine_cache_stats() -> None:
-    _CACHE_EVENTS.clear()
+@contextlib.contextmanager
+def recording():
+    """Record every span that opens in the block, on every thread; yields
+    the list the spans append to. A span open when the block ends still
+    lands in the list as it closes. Recordings do not nest."""
+    global _SPANS
+    if _SPANS is not None:
+        raise RuntimeError("a span recording is already open")
+    out: list = []
+    _SPANS = out
+    try:
+        yield out
+    finally:
+        _SPANS = None
 
 
 # ----------------------------------------------------------------------

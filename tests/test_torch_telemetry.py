@@ -4,18 +4,22 @@ the progress sink (byte for byte), the taps hook, the host driver's ledger
 over 3 rounds of fedldf, fedlama, fedavg and int8 + EF, the zero-cost path
 (telemetry on gives the trajectory of telemetry off, bit for bit, in every
 driver), the two drivers' ledgers against each other, resume, taps in a
-block that do not alias later rounds, the verbose lines, the engine-cache
-counters, the profile window, the monitor (byte for byte), and the small
-pieces ``launch/train.py`` needs (``CommMeter.summary``, ``vgg9()``,
-``vgg9_fl()``) and the launcher itself.
+block that do not alias later rounds, the verbose lines, the program
+spans (off, on, the tree a block and a round emit, and the trajectory
+the same bit for bit either way), the profile window, the monitor (byte
+for byte), and the small pieces ``launch/train.py`` needs
+(``CommMeter.summary``, ``vgg9()``, ``vgg9_fl()``) and the launcher itself.
 
 The task is the MLP of tests/test_telemetry.py (N=8, K=4, B=8).
 """
 import ast
+import collections
 import dataclasses
 import io
 import json
 import os
+import threading
+import time
 
 import pytest
 
@@ -538,7 +542,7 @@ def test_pull_makes_one_copy_a_dtype():
 
 
 # ======================================================================
-# Verbose output, engine-cache counters, profile window
+# Verbose output, program spans, profile window
 # ======================================================================
 def _legacy_lines(log, runner, rounds, with_eval):
     """The lines verbose=True printed before the sink existed."""
@@ -569,15 +573,121 @@ def test_verbose_output_is_unchanged(task, capsys, runner, with_eval, tele):
     assert out == _legacy_lines(log, runner, rounds, with_eval)
 
 
-def test_engine_cache_counts_one_build_a_call_and_no_hits(task):
-    tprof.reset_engine_cache_stats()
-    for _ in range(2):
-        _drive(task, "host", "vmap", None, rounds=1)
-    _drive(task, "engine", "vmap", TelemetryConfig(), rounds=1)
-    assert tprof.engine_cache_stats() == {"round_builds": 2,
-                                          "block_builds": 1}
-    tprof.reset_engine_cache_stats()
-    assert tprof.engine_cache_stats() == {}
+def test_span_off_is_the_shared_no_op_and_records_nothing():
+    a, b = tprof.span("engine.round"), tprof.span("round.select")
+    assert a is b
+    with a, b:
+        pass
+    with tprof.recording() as spans:
+        with a:          # made while off: stays the no-op
+            pass
+    assert spans == []
+
+
+def test_spans_nest_per_thread_on_the_wall_clock():
+    worker_tid = []
+
+    def worker():
+        with tprof.span("attention.bwd"):
+            worker_tid.append(threading.get_ident())
+
+    thread = threading.Thread(target=worker)
+    with tprof.recording() as spans:
+        before = time.time_ns()
+        with tprof.span("local_update"):
+            with tprof.span("forward"):
+                pass
+            thread.start()
+            thread.join(timeout=30)
+            with tprof.span("sgd"):
+                pass
+        after = time.time_ns()
+    assert not thread.is_alive()
+    main = threading.get_ident()
+    assert [(path, tid) for path, _, _, tid in spans] == [
+        ("local_update/forward", main), ("attention.bwd", worker_tid[0]),
+        ("local_update/sgd", main), ("local_update", main)]
+    at = {path: (s, e) for path, s, e, _ in spans}
+    assert before <= at["local_update"][0] <= at["local_update/forward"][0]
+    assert at["local_update/forward"][1] <= at["attention.bwd"][0]
+    assert at["attention.bwd"][1] <= at["local_update/sgd"][0]
+    assert at["local_update/sgd"][1] <= at["local_update"][1] <= after
+    with tprof.recording():
+        with pytest.raises(RuntimeError, match="already open"):
+            with tprof.recording():
+                pass
+
+
+_LOCAL = ["local_update", "local_update/forward", "local_update/sgd"]
+
+
+def _round_tree(mode, case):
+    """The spans one round emits, as paths under the round's parent."""
+    if mode == "vmap":
+        paths = (["round.local_training"]
+                 + [f"round.local_training/{p}" for p in _LOCAL]
+                 + ["round.divergence", "round.select"])
+        if case == "int8_ef":
+            paths += ["round.state_view", "round.uplink",
+                      "round.update_state", "round.state_scatter"]
+        else:
+            paths += ["round.aggregate"]
+    else:
+        paths = ["round.phase1", "round.select", "round.phase2",
+                 "round.finalize"]
+        paths += K * ([f"round.phase1/{p}" for p in _LOCAL]
+                      + ["round.phase1/round.divergence"]
+                      + [f"round.phase2/{p}" for p in _LOCAL]
+                      + ["round.phase2/round.aggregate"])
+    return collections.Counter(paths)
+
+
+@pytest.mark.parametrize("runner,mode,case", [
+    ("engine", "vmap", "fedldf"), ("engine", "scan", "fedldf"),
+    ("engine", "vmap", "int8_ef"), ("host", "vmap", "fedldf")])
+def test_engine_and_host_loop_emit_the_documented_span_tree(task, runner,
+                                                           mode, case):
+    """3 rounds in two blocks (an evaluation after rounds 0 and 2): the
+    engine's spans once a call, once a block and once a round; the host
+    loop (``run_training``) shares the round's through ``_step``."""
+    with tprof.recording() as spans:
+        _drive(task, runner, mode, None, case, rounds=3,
+               eval_fn=lambda p: 0.5, eval_every=2)
+    assert {tid for *_, tid in spans} == {threading.get_ident()}
+    rounds = collections.Counter()
+    for _ in range(3):
+        rounds.update(_round_tree(mode, case))
+    if runner == "host":
+        want = rounds
+    else:
+        want = collections.Counter(
+            {"engine.enter": 1, "engine.exit": 1, "engine.draws": 2,
+             "engine.pull": 2, "engine.round": 3})
+        want.update({f"engine.round/{p}": n for p, n in rounds.items()})
+    assert collections.Counter(path for path, *_ in spans) == want
+    for _, s, e, _ in spans:
+        assert s <= e
+
+
+@pytest.mark.parametrize("how", [
+    dict(runner="host", mode="vmap"), dict(runner="host", mode="scan"),
+    dict(runner="engine", mode="vmap"),
+    dict(runner="engine", mode="vmap", case="int8_ef"),
+    dict(runner="engine", mode="scan")],
+    ids=["host_vmap", "host_scan", "engine", "engine_int8_ef", "engine_scan"])
+def test_recording_spans_is_bit_identical_to_not(task, how):
+    kw = dict(eval_fn=lambda p: 0.5, eval_every=2)
+    p0, l0 = _drive(task, tele=None, **how, **kw)
+    with tprof.recording() as spans:
+        p1, l1 = _drive(task, tele=None, **how, **kw)
+    assert spans
+    _assert_same_params(p0, p1)
+    assert l0.losses == l1.losses and l0.uplink_mb == l1.uplink_mb
+    assert l0.meter == l1.meter and l0.test_errors == l1.test_errors
+    if l0.final_state is not None:
+        for a, b in zip(tree_leaves(l0.final_state),
+                        tree_leaves(l1.final_state)):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("runner,window,want", [
