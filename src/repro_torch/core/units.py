@@ -301,3 +301,14 @@ def tree_cast(tree: Pytree, dtype) -> Pytree:
 def tree_stack_index(tree: Pytree, i) -> Pytree:
     """Index the leading (client) axis of a stacked tree."""
     return tree_map(lambda l: l[i], tree)
+
+
+def tree_unbind(tree: Pytree) -> list[Pytree]:
+    """The trees along a stacked tree's leading axis, each leaf unbound
+    once (``leaf.unbind(0)``). Its views are :func:`tree_stack_index`'s,
+    but autograd sees one node a leaf, whose backward stacks the slices'
+    gradients in one write; a slice a view would give each its own
+    full-size zero-filled gradient, and add them."""
+    parts = tree_map(lambda l: l.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]

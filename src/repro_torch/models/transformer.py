@@ -17,8 +17,12 @@ weights ``(d_in, d_out)``), so its params cross with
     }
 
 The reference scans the stacked blocks; here :func:`_run_stack` is a
-Python loop over ``l`` that takes each layer's leaves as views
-(``tree_stack_index``). ``ModelConfig.remat_blocks`` (the reference's
+Python loop over the layers, whose leaves are views from unbinding each
+stacked leaf once a forward (``tree_unbind``; the decoder's cross K/V
+projections read the same views): autograd then writes a stacked leaf's
+gradient once, as one ``stack`` of its layers' gradients, where a slice
+a layer would fill a full-size zero gradient for each and add the L of
+them. ``ModelConfig.remat_blocks`` (the reference's
 ``jax.checkpoint`` around each block) wraps each block in
 :class:`_RecomputeBlock`, an ``autograd.Function`` that keeps only the
 block's inputs and recomputes the block in the backward pass; it works
@@ -64,7 +68,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.partition import leaf_paths, tree_from_paths
-from repro_torch.core.units import tree_map, tree_stack_index
+from repro_torch.core.units import tree_map, tree_unbind
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -293,16 +297,16 @@ class _RecomputeBlock(torch.autograd.Function):
         return (None, *grads)
 
 
-def _run_stack(blocks, cfg: ModelConfig, x, positions, kind: str,
+def _run_stack(layers, cfg: ModelConfig, x, positions, kind: str,
                enc_kv=None, flash_attention=None):
-    """(x, aux): the stacked ``kind`` blocks in order (as many as their
-    leading dim), aux summed over the layers in f32. ``enc_kv``: the
-    decoder's stacked (L, B, S_enc, KV, hd) pair; layer ``l`` reads its
-    slice ``l``."""
+    """(x, aux): the ``kind`` blocks of ``layers`` (a stack's per-layer
+    trees, :func:`tree_unbind`) in order, aux summed over the layers in
+    f32. ``enc_kv``: the decoder's stacked (L, B, S_enc, KV, hd) pair;
+    layer ``l`` reads its slice ``l``, unbound once too."""
     aux = torch.zeros((), device=x.device)
-    for l in range(blocks["ln1"].shape[0]):
-        blk = tree_stack_index(blocks, l)
-        kv = () if enc_kv is None else (enc_kv[0][l], enc_kv[1][l])
+    kvs = ([()] * len(layers) if enc_kv is None
+           else zip(*map(tree_unbind, enc_kv)))
+    for blk, kv in zip(layers, kvs):
         if not cfg.remat_blocks:
             x, a = _block_fwd(blk, cfg, x, positions, kind, flash_attention,
                               kv or None)
@@ -350,7 +354,7 @@ def _encode(params, cfg: ModelConfig, enc_inputs,
     x = enc_inputs.to(dt) @ enc["enc_embed"]["proj"]
     x = rms_norm(x, enc["enc_embed"]["norm"])
     pos = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
-    x, _ = _run_stack(enc["enc_blocks"], cfg, x, pos, "enc",
+    x, _ = _run_stack(tree_unbind(enc["enc_blocks"]), cfg, x, pos, "enc",
                       flash_attention=flash_attention)
     return x
 
@@ -365,12 +369,12 @@ def _cross_kv(cross, cfg: ModelConfig, enc_out):
             (enc_out @ cross["wv"].to(dt)).reshape(shape))
 
 
-def _enc_kv_all(params, cfg: ModelConfig, enc_out):
+def _enc_kv_all(layers, cfg: ModelConfig, enc_out):
     """Every decoder layer's cross K/V, computed once: a stacked (L, B,
-    S_enc, KV, hd) pair."""
-    cross = params["blocks"]["cross"]
-    pairs = [_cross_kv(tree_stack_index(cross, l), cfg, enc_out)
-             for l in range(cross["wk"].shape[0])]
+    S_enc, KV, hd) pair. ``layers``: the decoder's stack unbound, the
+    views its blocks read too, so each cross leaf still takes one
+    gradient write."""
+    pairs = [_cross_kv(layer["cross"], cfg, enc_out) for layer in layers]
     return (torch.stack([k for k, _ in pairs]),
             torch.stack([v for _, v in pairs]))
 
@@ -412,12 +416,13 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens, embeddings)
     pos = _positions_for(cfg, b, s, tokens.device)
+    layers = tree_unbind(params["blocks"])
     enc_kv = None
     if cfg.is_encdec:
-        enc_kv = _enc_kv_all(params, cfg, _encode(
+        enc_kv = _enc_kv_all(layers, cfg, _encode(
             params, cfg, _need_frames(cfg, enc_inputs), flash_attention))
-    x, aux = _run_stack(params["blocks"], cfg, x, pos, block_kind(cfg),
-                        enc_kv, flash_attention)
+    x, aux = _run_stack(layers, cfg, x, pos, block_kind(cfg), enc_kv,
+                        flash_attention)
     return _logits(params, cfg, x), aux
 
 

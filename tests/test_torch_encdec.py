@@ -37,7 +37,7 @@ from repro.models.config import ModelConfig as JModelConfig  # noqa: E402
 from repro.models.lora import inject_lora as jinject  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.partition import leaf_paths  # noqa: E402
-from repro_torch.core.units import UnitMap  # noqa: E402
+from repro_torch.core.units import UnitMap, tree_unbind  # noqa: E402
 from repro_torch.federated import (FLConfig, build_round_scan,  # noqa: E402
                                    build_round_vmap)
 from repro_torch.models import decode as tdec  # noqa: E402
@@ -95,7 +95,7 @@ def test_encode_and_enc_kv_all_match_reference(model):
     assert tout.shape == (2, 13, tcfg.d_model)
     _close(tout, jout, msg="encode")
     jk, jv = jtfm._enc_kv_all(jp, jcfg, jout)
-    tk, tv = tfm._enc_kv_all(tp, tcfg, tout)
+    tk, tv = tfm._enc_kv_all(tree_unbind(tp["blocks"]), tcfg, tout)
     shape = (tcfg.num_layers, 2, 13, tcfg.num_kv_heads, tcfg.hd)
     assert tuple(tk.shape) == tuple(tv.shape) == shape == jk.shape
     _close(tk, jk, msg="cross k")
@@ -345,7 +345,7 @@ def test_f32_frames_into_a_bf16_model_are_cast():
     assert jout.dtype == jnp.float32 and tout.dtype == torch.float32
     _close(tout, jout, ENC_TOL * float(jnp.abs(jout).max()), "encode")
     jk, jv = jtfm._enc_kv_all(jp, jcfg, jout)
-    tk, tv = tfm._enc_kv_all(tp, tcfg, tout)
+    tk, tv = tfm._enc_kv_all(tree_unbind(tp["blocks"]), tcfg, tout)
     for t_, j_, name in ((tk, jk, "cross k"), (tv, jv, "cross v")):
         assert j_.dtype == jnp.float32 and t_.dtype == torch.float32
         _close(t_, j_, ENC_TOL * float(jnp.abs(j_).max()), name)

@@ -7,7 +7,9 @@ fine-tuning through the kernel's differentiable form (``FlashAttentionFn``
 under ``torch.func``, a partitioned round against the CPU, remat blocks),
 the ssm and hybrid kinds (the SSD's chunked form against its
 recurrence, hymba-1.5b's attention shapes on every route, a small hybrid
-and ssm model's serving against the CPU), and the moe kind (``moe_fwd``
+and ssm model's serving against the CPU, and an 8-layer hybrid's gradient
+and backward peak against the former slice a layer of the stacked
+blocks), and the moe kind (``moe_fwd``
 against a per-expert loop with choices dropped and no host sync,
 deepseek-moe-16b's attention shapes, a small moe model's serving and its
 ``vmap(grad)`` of ``lm_loss`` against the CPU), and the enc-dec kinds
@@ -1469,6 +1471,36 @@ def test_cuda_ssm_and_hybrid_serving_match_cpu(cuda, no_tf32, family):
     assert counts["flash_attention_cuda_core"] == 2 * layers   # fwd, prefill
     assert counts["flash_attention_decode"] == 4 * layers
     assert counts["flash_attention"] == 6 * layers
+
+
+def test_cuda_stacked_grads_equal_the_slice_form(cuda, no_tf32,
+                                                 monkeypatch):
+    """An 8-layer reduced hybrid in f32, one fine-tune step's gradient on
+    the card (``vjp`` of ``lm_loss``): every leaf equal to the one of the
+    former slice a layer (``tests/test_torch_stack_grad.py``), and the
+    backward's peak ``max_memory_allocated`` no higher than that form's."""
+    from test_torch_stack_grad import batch_for, slice_layers, small_model
+    cfg, params = small_model("hybrid", layers=8)
+    params = tree_map(lambda l: l.to(cuda), params)
+    batch = batch_for(cfg, device=cuda, seq=64)     # the CUDA-core route
+
+    def step():
+        loss, vjp_fn = torch.func.vjp(
+            lambda p: ttf.lm_loss(p, cfg, batch), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (g,) = vjp_fn(torch.ones_like(loss))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return tree_map(lambda l: l.cpu(), g), peak
+
+    got, peak = step()
+    monkeypatch.setattr(ttf, "tree_unbind", slice_layers)
+    want, peak_slices = step()
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert peak <= peak_slices
+    assert ops.launch_counts()["flash_attention_cuda_core"] == 2 * 8
 
 
 # -- the moe kind -------------------------------------------------------------
