@@ -4,16 +4,20 @@
    from its compile cache (``build/repro_torch_kernels`` in the checkout;
    built on a checkout's first run), the weights on the device from the
    seed, the data, and the check's first rounds through the window's own
-   call (:func:`bench.check.observe_program`), which also warm up every
-   shape the window uses; then one evaluation. The check's own copies are
-   not counted.
+   call (:func:`bench.check.observe_program`); then one block of
+   ``eval_every`` rounds and its evaluation, as the window runs them, so
+   that every shape the window uses is warm and the caching allocator has
+   made its first retry (hymba's first block of a process frees the
+   cache's ~1,700 segments once, a stall of 0.6-1.9 s) before the clock
+   starts. The check's own copies are not counted.
 2. The window: ``run_training_scan`` in blocks of ``eval_every`` rounds,
    each block resumed with ``start_round`` and ``server_state`` and followed
    by the evaluation a user's run makes there, until ``--seconds`` have
    passed; every block ends in the engine's one pull and the evaluation's
    read-back. ``round_ms`` is the window's wall time over its rounds.
    With ``--trace 1`` the window runs under the profiler (the card's
-   activity only) and the per-layer metrics are read from its trace.
+   activity only) with the program's spans recorded, and the per-layer
+   metrics are read from its trace and spans.
 3. The check: the program's state is freed, then the reference follows the
    check's rounds, step by step from the program's own state, and the
    numbers are held to the cell's limits (:mod:`bench.check`).
@@ -58,7 +62,7 @@ def run_cell(bench: dict, entry: dict, seed: int, seconds: float,
     timed path through it)."""
     import torch
 
-    from bench import check, tasks
+    from bench import check, spans, tasks
     from bench import trace as trace_mod
     from bench.reference import plain
     from repro_torch.federated.server import run_training_scan
@@ -81,12 +85,14 @@ def run_cell(bench: dict, entry: dict, seed: int, seconds: float,
                     device=device, draws=task.draws)
 
     observed, params, state, t = check.observe_program(task, run_scan)
+    every = traffic["eval_every"]
+    params, log = run_scan(params, every, t, state)
+    state, t = log.final_state, t + every
     task.eval_fn(params)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
     setup_s = time.perf_counter() - started - observed.check_s
 
-    every = traffic["eval_every"]
     rec, traces = trace_mod.Recorder(), []
     losses, evals, rounds, blocks = [], [], 0, []
     if cuda:
@@ -129,9 +135,15 @@ def run_cell(bench: dict, entry: dict, seed: int, seconds: float,
               "failed": sum(not math.isfinite(x) for x in losses)}
     if traced and traces:
         tr = traces[0]
-        print(f"bench: traced {len(tr.kernels)} kernels and {len(tr.copies)} "
-              f"copies in {tr.window_s:.3f} s, read in {tr.read_s:.1f} s",
-              file=sys.stderr)
+        attributed = time.perf_counter()
+        unclaimed = (spans.unclaimed_share(*tr.attribution)
+                     if tr.attribution else None)
+        print(f"bench: traced {len(tr.kernels)} kernels, {len(tr.copies)} "
+              f"copies and {len(tr.program)} program spans "
+              f"({len(tr.program) / rounds:.1f} a round) in "
+              f"{tr.window_s:.3f} s, read in {tr.read_s:.3f} s, given to "
+              f"the spans in {time.perf_counter() - attributed:.3f} s; "
+              f"unclaimed share {unclaimed!r}", file=sys.stderr)
         info = RunInfo(cfg, traffic, rounds, tr.window_s)
         metrics = {}
         for m in spec.metrics_of(bench, entry["name"], "per_layer"):

@@ -18,9 +18,13 @@ no span goes to ``between calls``.
 :func:`by_span` gives ``{path: [device_s, host_s, calls]}``: the device
 seconds of the work a path launched itself (not its children's), the host
 seconds its spans were open, and how many there were. The per-layer
-numbers of the program's layers are sums over that table; each is ``None``
+numbers of the program's layers are sums over that table
+(:func:`subtree_device_ms` for a span and everything under it); each is
+``None`` where the table holds no span it sums, and the table is ``None``
 when the trace has no program spans or no launch times (a program without
-the recorder, or a torch whose records lack the correlation).
+the recorder, or a torch whose records lack the correlation). A traced
+run of the harness works the table out once (``bench.trace.Trace``) for
+every reader in ``bench/metrics/``.
 """
 from __future__ import annotations
 
@@ -29,8 +33,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-
-from bench.trace import _ns
 
 BETWEEN = "between calls"
 UNLAUNCHED = "no launch record"
@@ -50,32 +52,49 @@ class Launches:
         return any(r[3] is not None for r in self.all())
 
 
+def _clock(cls, what: str):
+    """The accessor of a kineto record's time in ns (``start_ns``), or one
+    over the older microsecond accessor (``start_us``) where the installed
+    torch has only that; looked up once on the record's class."""
+    ns = getattr(cls, f"{what}_ns", None)
+    if ns is not None:
+        return ns
+    us = getattr(cls, f"{what}_us")
+    return lambda ev: int(us(ev) * 1000)
+
+
 def read_launches(prof) -> Launches:
-    """Every CUDA record of a finished ``torch.profiler.profile``, with
-    the start of the host call of the same correlation id as its launch
-    time. Kernels and copies are split as :func:`bench.trace._read` splits
-    them."""
+    """Every CUDA record of a finished ``torch.profiler.profile``, in one
+    pass over its records, with the start of the host call of the same
+    correlation id as its launch time. Copies and sets (``Memcpy``,
+    ``Memset``) are kept apart from kernels."""
+    events = prof.profiler.kineto_results.events()
+    if not events:
+        return Launches([], [])
+    cls = type(events[0])
+    start, duration = _clock(cls, "start"), _clock(cls, "duration")
+    device_type, corr, name = cls.device_type, cls.correlation_id, cls.name
     cuda = torch.autograd.DeviceType.CUDA
     launched: dict = {}
     device = []
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == cuda:
+    for ev in events:
+        if device_type(ev) == cuda:
             device.append(ev)
             continue
-        cid = ev.correlation_id()
+        cid = corr(ev)
         if cid:
-            s = _ns(ev, "start")
+            s = start(ev)
             if s < launched.get(cid, s + 1):
                 launched[cid] = s
     kernels, copies = [], []
     for ev in device:
-        s = _ns(ev, "start")
-        launch = launched.get(ev.correlation_id())
+        s = start(ev)
+        launch = launched.get(corr(ev))
         if launch is None:
             launch = launched.get(ev.linked_correlation_id())
-        name = ev.name()
-        (copies if name.startswith(("Memcpy", "Memset")) else
-         kernels).append((name, s, s + _ns(ev, "duration"), launch))
+        label = name(ev)
+        (copies if label.startswith(("Memcpy", "Memset")) else
+         kernels).append((label, s, s + duration(ev), launch))
     return Launches(kernels, copies)
 
 
@@ -163,34 +182,44 @@ def _parts(path: str) -> list:
     return path.split("/")
 
 
-def local_training_ms(by: dict, rounds: int) -> float:
+def subtree_device_ms(by: dict, rounds: int, name: str) -> Optional[float]:
+    """Device ms a round launched under any path that holds the span
+    ``name`` (its subtree); ``None`` where no such span opened."""
+    rows = [r for p, r in by.items() if name in _parts(p)]
+    if not rows:
+        return None
+    return sum(r[0] for r in rows) / rounds * 1e3
+
+
+def local_training_ms(by: dict, rounds: int) -> Optional[float]:
     """Device ms a round launched under ``local_update`` (its subtree)."""
-    return sum(r[0] for p, r in by.items()
-               if "local_update" in _parts(p)) / rounds * 1e3
+    return subtree_device_ms(by, rounds, "local_update")
 
 
-def server_ms(by: dict, rounds: int) -> float:
+def server_ms(by: dict, rounds: int) -> Optional[float]:
     """Device ms a round launched under an ``engine.*`` or ``round.*`` span
-    but not under ``local_update``."""
-    return sum(r[0] for p, r in by.items()
-               if "local_update" not in _parts(p)
-               and any(x.startswith(("engine.", "round."))
-                       for x in _parts(p))) / rounds * 1e3
+    but not under ``local_update``; ``None`` where no such span opened."""
+    rows = [r for p, r in by.items()
+            if "local_update" not in _parts(p)
+            and any(x.startswith(("engine.", "round.")) for x in _parts(p))]
+    if not rows:
+        return None
+    return sum(r[0] for r in rows) / rounds * 1e3
 
 
-def host_enqueue_ms(by: dict, rounds: int) -> float:
-    """Host ms a round inside ``engine.round`` spans."""
-    return sum(r[1] for p, r in by.items()
-               if _parts(p)[-1] == "engine.round") / rounds * 1e3
+def host_enqueue_ms(by: dict, rounds: int) -> Optional[float]:
+    """Host ms a round inside ``engine.round`` spans; ``None`` where no
+    such span opened."""
+    rows = [r for p, r in by.items() if _parts(p)[-1] == "engine.round"]
+    if not rows:
+        return None
+    return sum(r[1] for r in rows) / rounds * 1e3
 
 
 def attention_bwd_ms(by: dict, rounds: int) -> Optional[float]:
     """Device ms a round launched under ``attention.bwd``; ``None`` where
     no such span opened."""
-    rows = [r for p, r in by.items() if "attention.bwd" in _parts(p)]
-    if not rows:
-        return None
-    return sum(r[0] for r in rows) / rounds * 1e3
+    return subtree_device_ms(by, rounds, "attention.bwd")
 
 
 def evaluation_ms(by: dict, rounds: int) -> float:
@@ -217,16 +246,19 @@ def _gaps(busy: list, start_ns: int, end_ns: int) -> list:
 
 
 def idle_gaps(busy: list, launches: Launches, timeline: Timeline,
-              start_ns: int, end_ns: int, n: int = 10) -> list:
+              start_ns: int, end_ns: int, n: int = 10,
+              depth: Optional[int] = None) -> list:
     """The longest stretches with nothing on the card (``busy`` is the
     union of the work's intervals), each named by the innermost span open
-    at its start and the work that ended it."""
-    starts = {s: name for name, s, _, _ in launches.all()}
+    at its start (the last ``depth`` names of its path, or all of them)
+    and the work that ended it."""
+    starts = {r[1]: r[0] for r in launches.all()}
     out = []
     for s, e in sorted(_gaps(busy, start_ns, end_ns),
                        key=lambda g: g[0] - g[1])[:n]:
+        where = "/".join(_parts(timeline.at(s))[-depth if depth else 0:])
         nxt = starts.get(e, "the window's end")
-        out.append([f"{timeline.at(s)}, before {nxt[:80]}", (e - s) / 1e9])
+        out.append([f"{where}, before {nxt[:80]}", (e - s) / 1e9])
     return out
 
 

@@ -7,6 +7,8 @@ the harness finds everything else by those names:
 - ``bench/configs/<config>.json`` (the path is the config entry's ``file``):
   the model as it is run;
 - ``bench/reference/<config>.py``: its plain reference;
+- ``bench/counts/<config>.py``: its parameters, layer units and FLOPs,
+  counted from its shapes (:mod:`bench.yardstick` reads them);
 - ``bench/traffic/<traffic>.json``: the traffic mix (data sizes, the FL
   setup, the evaluation cadence, the rounds the check follows);
 - ``bench/limits/<cell>.json``: the limit of each number the check compares;
@@ -113,9 +115,34 @@ def reference(config_name: str):
                         _module_label("reference", config_name))
 
 
+def counts(config_name: str):
+    """``bench/counts/<config>.py``: a module with ``param_count(model)``,
+    ``num_units(model)``, ``forward_flops(model, data)`` (one sample's
+    forward) and, for a model with attention, ``attention_flops(model,
+    seq)`` (one sequence's causal products)."""
+    return _load_module(BENCH / "counts" / f"{config_name}.py",
+                        _module_label("counts", config_name))
+
+
+def _declared_counts(entry: dict, cfg: dict) -> list[str]:
+    """Where the config file's declared ``param_count`` or ``units``
+    differs from what its counts module gives."""
+    got = counts(entry["name"])
+    faults = []
+    for key, count in (("param_count", got.param_count),
+                       ("units", got.num_units)):
+        counted = count(cfg["model"])
+        if cfg.get(key) != counted:
+            faults.append(f"config file {entry['file']} declares {key} "
+                          f"{cfg.get(key)!r}; its counts give {counted!r}")
+    return faults
+
+
 def check_names(bench: dict) -> list[str]:
     """Every name, unit and file rule of BENCHMARK.json that a file under
-    bench/ can break; returns the faults found (none when sound)."""
+    bench/ can break, and each config file's declared ``param_count`` and
+    ``units`` against its counts; returns the faults found (none when
+    sound)."""
     faults = []
 
     def name_ok(value, what):
@@ -126,10 +153,15 @@ def check_names(bench: dict) -> list[str]:
         name_ok(c["name"], "config")
         for key in c["reduced"]:
             name_ok(key, f"reduced key of {c['name']}")
-        if not (ROOT / c["file"]).is_file():
+        file = ROOT / c["file"]
+        if not file.is_file():
             faults.append(f"config file {c['file']} is missing")
         if not (BENCH / "reference" / f"{c['name']}.py").is_file():
             faults.append(f"config {c['name']} has no reference")
+        if not (BENCH / "counts" / f"{c['name']}.py").is_file():
+            faults.append(f"config {c['name']} has no counts")
+        elif file.is_file():
+            faults += _declared_counts(c, load_json(file))
     for w in bench["workloads"]:
         name_ok(w["name"], "workload")
         name_ok(w["traffic"], "traffic")

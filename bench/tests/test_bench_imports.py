@@ -1,7 +1,8 @@
 """The import guard: every module of the benchmark, imported in a fresh
 process, loads neither JAX nor the JAX package ``repro`` (compared by whole
-top-level names: ``repro_torch`` is the port), and the references load
-nothing of the port either."""
+top-level names: ``repro_torch`` is the port), the references load
+nothing of the port either, and a configuration's counts load nothing at
+all."""
 import json
 import os
 import subprocess
@@ -40,6 +41,7 @@ from bench import spec
 bench = spec.load_benchmark()
 for c in bench["configs"]:
     spec.reference(c["name"])
+    spec.counts(c["name"])
 for m in bench["per_layer"]:
     spec.metric_reader(m["name"])
 """
@@ -62,3 +64,14 @@ def test_references_load_nothing_of_the_program():
     loaded = _loaded(code)
     assert not loaded & (FORBIDDEN | {"repro_torch"}), loaded
     assert "torch" in loaded
+
+
+def test_counts_load_nothing():
+    code = "\n".join(
+        ["import importlib.util, sys"] +
+        [f"s = importlib.util.spec_from_file_location('c{i}', "
+         f"{str(p)!r})\n"
+         f"s.loader.exec_module(importlib.util.module_from_spec(s))"
+         for i, p in enumerate(sorted((BENCH / "counts").glob("*.py")))])
+    loaded = _loaded(code)
+    assert not loaded & (FORBIDDEN | {"repro_torch", "torch", "bench"})

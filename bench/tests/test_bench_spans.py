@@ -1,8 +1,9 @@
 """The card's work given to the program's spans (``bench/spans.py``): the
 innermost rule over threads on a made-up trace, the program's layers as
 sums over the table, nothing without spans or launch times, idle gaps
-named by a program span and idle time summed by span,
-``tools/span_table.py`` at a small size on the CPU; on the card, a kernel
+named by a program span and idle time summed by span, the readers of
+the span metrics over a trace's one attribution and against
+``tools/span_table.py``'s report, that tool at a small size on the CPU; on the card, a kernel
 launched inside a span lands in it, stamped inside it (the spans and the
 profiler share one clock)."""
 import pytest
@@ -151,6 +152,138 @@ def test_span_table_drives_a_small_cell_on_the_cpu():
         assert paths[name] == 2
     out = tool.report(w)
     assert out["by_span"] is None and out["kernels"] == 0
+
+
+def test_by_span_matches_a_search_of_every_open_span():
+    """The table's device column on random nested spans on two threads,
+    with launches before, between and after them and some without a
+    launch record, against a search of all spans for the innermost one
+    open at each launch: the latest to open, the shortest of those that
+    open together; a span is open from its start up to, not at, its
+    end."""
+    import random
+    rng = random.Random(2 ** 31 + 7)
+    program = []
+    for _ in range(40):
+        a = rng.randrange(0, 10_000)
+        for depth in range(rng.randrange(1, 4)):
+            b = a + rng.randrange(1, 500)
+            program.append(("/".join(f"s{rng.randrange(5)}"
+                                     for _ in range(depth + 1)), a, b,
+                            rng.choice([MAIN, AUTOGRAD])))
+            a += rng.randrange(0, 10)
+    kernels = []
+    for i in range(3000):
+        start = rng.randrange(0, 11_000)
+        launch = None if i % 97 == 0 else start - rng.randrange(-20, 200)
+        kernels.append((f"k{i % 7}", start, start + rng.randrange(0, 50),
+                        launch))
+    by, timeline = spans.attribute(spans.Launches(kernels, []), HARNESS,
+                                   program)
+    every = [(s, e) for _, s, e in HARNESS] + [(s, e) for _, s, e, _
+                                               in program]
+    found: dict = {}
+    for _, s, e, launch in kernels:
+        if launch is None:
+            path = spans.UNLAUNCHED
+        else:
+            open_ = [(a, -b, i) for i, (a, b) in enumerate(every)
+                     if a <= launch < b]
+            path = (timeline.paths[max(open_)[2]] if open_
+                    else spans.BETWEEN)
+        found[path] = found.get(path, 0) + (e - s)
+    assert {p: round(r[0] * 1e9) for p, r in by.items() if p in found} == \
+        found
+    assert all(r[0] == 0.0 for p, r in by.items() if p not in found)
+
+
+def test_subtree_device_ms():
+    (by, _), _ = _attributed()
+    assert spans.subtree_device_ms(by, 1, "local_update") == \
+        pytest.approx(15e-6)
+    assert spans.subtree_device_ms(by, 2, "ssd.fwd") == pytest.approx(64e-6)
+    assert spans.subtree_device_ms(by, 1, "evaluation") == \
+        pytest.approx(384e-6)
+    assert spans.subtree_device_ms(by, 1, "no.such.span") is None
+
+
+def _traced(program=PROGRAM):
+    from bench.trace import Trace
+    return Trace(list(KERNELS), list(COPIES), list(HARNESS), 0, 3024,
+                 program=list(program))
+
+
+SPAN_METRICS = {"local_training_ms": 15e-6, "server_ms": 60e-6,
+                "host_enqueue_ms": 800e-6, "attention_bwd_ms": 4e-6}
+
+
+def _info(rounds):
+    from bench import harness, spec
+    bench = spec.load_benchmark()
+    entry = spec.cell(bench, "hymba-ft-seq512")
+    return harness.RunInfo(spec.config(bench, entry),
+                           spec.traffic(entry["traffic"]), rounds, 1.0)
+
+
+@pytest.mark.parametrize("name", sorted(SPAN_METRICS))
+def test_span_readers_on_a_trace_with_program_spans(name):
+    """Each reader of ``bench/metrics/`` over the trace's one attribution,
+    at two rounds: half the sums the table gives."""
+    from bench import spec
+    info, tr = _info(2), _traced()
+    assert spec.metric_reader(name).read(tr, info) == pytest.approx(
+        SPAN_METRICS[name] / 2)
+    assert tr.attribution is tr.attribution       # worked out once
+    # nothing to read without the program's spans
+    assert spec.metric_reader(name).read(_traced([]), info) is None
+
+
+def test_attention_bwd_reader_reads_nothing_where_no_such_span_opened():
+    from bench import spec
+    tr = _traced([p for p in PROGRAM if p[0] != "attention.bwd"])
+    assert spec.metric_reader("attention_bwd_ms").read(tr, _info(1)) is None
+
+
+def test_trace_gaps_are_named_by_the_innermost_program_span():
+    """The trace's own gaps (its breakdown) name the innermost program
+    span open at each gap's start, with its parent."""
+    assert _traced().idle_gaps(3) == [
+        [f"{spans.BETWEEN}, before lost", pytest.approx(428e-9)],
+        ["run_training_scan/engine.round, before Memcpy DtoH (Device -> "
+         "Pinned)", pytest.approx(158e-9)],
+        ["round.local_training/local_update, before attn_bwd",
+         pytest.approx(138e-9)]]
+    # the harness's span where the trace has no program spans
+    assert _traced([]).idle_gaps(2)[1][0] == \
+        "run_training_scan, before Memcpy DtoH (Device -> Pinned)"
+    # the same names as the span table's, cut to the last two
+    (_, timeline), launches = _attributed()
+    tr = _traced()
+    full = spans.idle_gaps(tr.busy_intervals(), launches, timeline, 0, 3024,
+                           n=3)
+    assert [[g[0].split(", before")[0].split("/")[-2:], g[1]]
+            for g in full] == [[g[0].split(", before")[0].split("/"), g[1]]
+                               for g in tr.idle_gaps(3)]
+
+
+def test_the_readers_equal_the_span_table_on_one_window():
+    """``tools/span_table.py``'s report and the benchmark's readers on the
+    same window's records give the same number for each span metric."""
+    import importlib.util
+    from pathlib import Path
+
+    from bench import spec
+    path = Path(__file__).resolve().parents[2] / "tools" / "span_table.py"
+    module = importlib.util.spec_from_file_location("span_table", path)
+    tool = importlib.util.module_from_spec(module)
+    module.loader.exec_module(tool)
+    w = dict(launches=spans.Launches(KERNELS, COPIES), rounds=2,
+             window_s=1.0, read_s=0.0, harness=HARNESS, program=PROGRAM,
+             start_ns=0, end_ns=3024)
+    out = tool.report(w)
+    for name in SPAN_METRICS:
+        assert spec.metric_reader(name).read(_traced(), _info(2)) == \
+            out[name], name
 
 
 @pytest.fixture

@@ -108,3 +108,38 @@ def test_config_files_hold_what_is_run(config):
     assert sum(math.prod(shape) for _, shape, _ in
                ref.param_spec(cfg["model"])) == cfg["param_count"]
     assert yardstick.num_units(cfg) == cfg["units"]
+
+
+def _with_config(**changes):
+    """BENCHMARK.json with its first config entry changed."""
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"][0].update(changes)
+    return bench
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_counts_found_by_name(config):
+    counts = spec.counts(config)
+    cfg = spec.load_json(spec.ROOT / spec.config_entry(BENCH, config)["file"])
+    assert counts.param_count(cfg["model"]) == cfg["param_count"]
+    assert counts.num_units(cfg["model"]) == cfg["units"]
+    assert callable(counts.forward_flops)
+
+
+def test_a_config_without_counts_is_a_fault():
+    faults = spec.check_names(_with_config(name="no-such-model"))
+    assert "config no-such-model has no counts" in faults
+
+
+@pytest.mark.parametrize("key", ["param_count", "units"])
+def test_declared_counts_that_differ_are_a_fault(tmp_path, key):
+    entry = BENCH["configs"][0]
+    cfg = spec.load_json(spec.ROOT / entry["file"])
+    cfg[key] += 1
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    # an absolute ``file`` is read where it lies
+    faults = spec.check_names(_with_config(file=str(path)))
+    assert len(faults) == 1 and f"declares {key} {cfg[key]}" in faults[0]
+    path.write_text(json.dumps({**cfg, key: cfg[key] - 1}))
+    assert spec.check_names(_with_config(file=str(path))) == []

@@ -1,4 +1,6 @@
-"""The benchmark's FLOP and byte arithmetic against hand counts."""
+"""The benchmark's FLOP and byte arithmetic against hand counts, and each
+cell's yardstick outputs as constants: moving a configuration's counts into
+a file of its own changes none of them by a bit."""
 import pytest
 
 from bench import spec, yardstick
@@ -18,7 +20,8 @@ def test_vgg9_forward_flops_by_hand():
              (8, 128, 256), (8, 256, 256), (4, 256, 512), (4, 512, 512)]
     hand = sum(2 * s * s * 9 * a * b for s, a, b in convs) + 2 * 2048 * 10
     assert hand == 418_816_000
-    assert yardstick.vgg_forward_flops(cfg["model"]) == hand
+    counts = spec.counts("vgg9-cifar10")
+    assert counts.forward_flops(cfg["model"], {}) == hand
 
 
 def test_vgg9_round_flops():
@@ -71,7 +74,9 @@ def test_hymba_flops_by_hand():
     q, n, p, h = 128, 16, 64, 50
     ssd = 32 * 4 * (2 * q * q * n + 2 * q * q * p * h + 4 * q * n * p * h)
     fwd = 2 * matmul * seq + attn + ssd
-    assert yardstick.lm_forward_flops(m, seq) == fwd
+    counts = spec.counts("hymba-1.5b")
+    assert counts.forward_flops(m, traffic["data"]) == fwd
+    assert counts.attention_flops(m, seq) == attn
     # 6·N·tokens dominates: 4,096 tokens a round
     assert 3 * fwd * 8 == pytest.approx(6 * matmul * 4096, rel=0.05)
     assert yardstick.attention_flops_per_round(cfg, traffic) == \
@@ -94,3 +99,36 @@ def test_packed_int8_uplink_bytes():
     _, units, sizes = fl.unit_layout(params)
     assert units == 9 and sum(sizes) == 4_709_706
     assert 4 * sum(s + 5 for s in sizes) + 20 * 9 * 4 == 18_839_724
+
+
+# (param_count, num_units, round_model_flops, attention_flops_per_round,
+#  fl_kernel_bytes_per_round) of each cell, as the yardstick gave them when
+# every configuration's counts were still its own code
+TABLE = {
+    "vgg9-k20-fedldf": (4_709_706, 9, 1222942720000.0, 0.0,
+                        {"sqdiff": 395_616_024}),
+    "vgg9-k20-int8ef": (4_709_706, 9, 1222942720000.0, 0.0,
+                        {"sqdiff": 395_616_024,
+                         "fused_uplink_ef": 1_243_364_544}),
+    "hymba-ft-seq512": (1_640_872_320, 34, 53490019729408.0,
+                        645503385600.0,
+                        {"sqdiff": 52_507_914_784,
+                         "masked_accumulate": 78_761_871_904}),
+}
+
+
+def test_table_covers_every_cell():
+    assert set(TABLE) == {w["name"] for w in BENCH["workloads"]}
+
+
+@pytest.mark.parametrize("name", sorted(TABLE))
+def test_yardstick_outputs_bit_for_bit(name):
+    cfg, traffic = _cell(name)
+    params, units, flops, attention, fl_bytes = TABLE[name]
+    assert yardstick.param_count(cfg) == params
+    assert yardstick.num_units(cfg) == units
+    got = yardstick.round_model_flops(cfg, traffic)
+    assert got == flops and type(got) is float
+    got = yardstick.attention_flops_per_round(cfg, traffic)
+    assert got == attention and type(got) is float
+    assert yardstick.fl_kernel_bytes_per_round(cfg, traffic) == fl_bytes
