@@ -1,5 +1,6 @@
 """Architecture registry, port of ``repro.configs``: the ten assigned LLM
-configs plus the paper's own VGG-9 (``vgg9_cifar10``).
+configs, granite-4.0-h-small (the port's own: no counterpart in
+``repro.configs``) and the paper's own VGG-9 (``vgg9_cifar10``).
 
 The arch modules are data only. ``get_config(arch_id)`` returns the exact
 full-scale :class:`~repro_torch.models.config.ModelConfig`;
@@ -24,6 +25,7 @@ ARCHS: dict[str, str] = {
     "qwen2-7b": "qwen2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 ARCH_IDS = tuple(ARCHS)

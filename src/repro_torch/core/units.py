@@ -25,8 +25,11 @@ import torch
 
 Pytree = Any
 
-# Top-level keys whose leaves carry a leading stacked-depth dimension.
-DEFAULT_STACKED_KEYS = ("blocks", "enc_blocks", "dec_blocks", "experts")
+# Top-level keys whose leaves carry a leading stacked-depth dimension
+# (``attn_blocks``: a patterned stack's attention layers, beside the
+# ``blocks`` of its other kind).
+DEFAULT_STACKED_KEYS = ("attn_blocks", "blocks", "enc_blocks", "dec_blocks",
+                        "experts")
 
 
 def tree_leaves(tree: Pytree) -> list[torch.Tensor]:

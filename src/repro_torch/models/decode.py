@@ -19,13 +19,14 @@ and that mask is always a prefix: ``arange(W) < min(pos + 1, W)``. The
 cache keeps ``pos`` as a Python int, so a decode step knows that prefix
 (the kernel's ``kv_len``) without reading the device.
 
-A hybrid block attends and runs the SSD on the same ``ln1`` output and
-averages the two; an ssm block has no ``ln2`` or MLP; an moe block's
-feed-forward is ``moe_fwd`` with its balance loss dropped, its capacity
-counted over the call's tokens (B·S at prefill, B at a decode step), as in
-the reference. A dec block's prefill encodes the frames once and writes
-each layer's cross K/V straight into the cache; a decode step reads them
-(every frame visible) and never writes them.
+A patterned stack (``hybrid_moe``) is not served: every entry point
+raises ``NotImplementedError``. A hybrid block attends and runs the SSD on
+the same ``ln1`` output and averages the two; an ssm block has no ``ln2``
+or MLP; an moe block's feed-forward is ``moe_fwd`` with its balance loss
+dropped, its capacity counted over the call's tokens (B·S at prefill, B at
+a decode step), as in the reference. A dec block's prefill encodes the
+frames once and writes each layer's cross K/V straight into the cache; a
+decode step reads them (every frame visible) and never writes them.
 
 Unlike the reference, which returns a new cache, :func:`decode_step`
 writes the new token's K/V and SSD conv tail and state into the cache's
@@ -52,6 +53,18 @@ from repro_torch.models.transformer import (_embed_tokens, _ffn, _logits,
 Pytree = Any
 
 
+def serving_kind(cfg: ModelConfig) -> str:
+    """The kind of every served block; a patterned stack (two kinds of
+    layer, ``ModelConfig.attn_period``) is not served."""
+    if cfg.attn_period:
+        raise NotImplementedError(
+            f"{cfg.name}: serving a patterned stack (attention and SSD "
+            "layers under two stacked keys) is not implemented; its cache "
+            "would hold K/V for the attention layers and SSD state for the "
+            "rest")
+    return block_kind(cfg)
+
+
 def cache_window(cfg: ModelConfig, seq_len: int) -> int:
     return min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
 
@@ -61,7 +74,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Empty cache for ``seq_len`` context (and ``enc_len`` encoder frames
     for an enc-dec model), leaves stacked over layers."""
     dt = dtype_of(cfg.compute_dtype)
-    kind = block_kind(cfg)
+    kind = serving_kind(cfg)
     layers = cfg.num_layers
     cache: Pytree = {"pos": 0}
     if kind != "ssm":
@@ -95,7 +108,7 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     buffer (oldest entry evicted).
     """
     b, s = tokens.shape
-    kind = block_kind(cfg)
+    kind = serving_kind(cfg)
     if cfg.is_encdec:
         enc_inputs = _need_frames(cfg, enc_inputs)
         enc_out = _encode(params, cfg, enc_inputs, flash_attention)
@@ -105,7 +118,7 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     positions = _positions_for(cfg, b, s, tokens.device)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(params["blocks"], l)
-        h = rms_norm(x, blk["ln1"])
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         if kind == "ssm":
             o, sc = ssm_mod.ssd_fwd(blk["ssm"], h, cfg, return_cache=True)
             _store_ssm(cache, l, sc)
@@ -137,9 +150,10 @@ def prefill(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
             cache["cross_k"][l].copy_(k)
             cache["cross_v"][l].copy_(v)
             x = x + _cross_attn(blk["cross"], cfg,
-                                rms_norm(x, blk["ln_cross"]), (k, v),
-                                flash_attention)
-        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
+                                rms_norm(x, blk["ln_cross"], cfg.norm_eps),
+                                (k, v), flash_attention)
+        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"], cfg.norm_eps),
+                     kind)[0]
     cache["pos"] = s
     return _logits(params, cfg, x[:, -1, :]), cache
 
@@ -159,7 +173,7 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
                 flash_attention: Optional[Callable] = None):
     """One token. tokens: (B, 1) int. Returns (logits (B, V), cache')."""
     b = tokens.shape[0]
-    kind = block_kind(cfg)
+    kind = serving_kind(cfg)
     pos = cache["pos"]
     x = _embed_tokens(params, cfg, tokens)
     if kind != "ssm":
@@ -168,7 +182,7 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
         positions = _positions_for(cfg, b, 1, tokens.device, offset=pos)
     for l in range(cfg.num_layers):
         blk = tree_stack_index(params["blocks"], l)
-        h = rms_norm(x, blk["ln1"])
+        h = rms_norm(x, blk["ln1"], cfg.norm_eps)
         if kind == "ssm":
             o, sc = ssm_mod.ssd_step(blk["ssm"], h, _layer_ssm(cache, l),
                                      cfg)
@@ -190,8 +204,9 @@ def decode_step(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + o
         if kind == "dec":
             x = x + _cross_attn(blk["cross"], cfg,
-                                rms_norm(x, blk["ln_cross"]),
+                                rms_norm(x, blk["ln_cross"], cfg.norm_eps),
                                 (cache["cross_k"][l], cache["cross_v"][l]),
                                 flash_attention)
-        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)[0]
+        x = x + _ffn(blk, cfg, rms_norm(x, blk["ln2"], cfg.norm_eps),
+                     kind)[0]
     return _logits(params, cfg, x[:, 0, :]), {**cache, "pos": pos + 1}

@@ -2,8 +2,9 @@
 (functional: parameters are plain tensors in nested dicts).
 
 The reference's cast points are kept: :func:`rms_norm` works in f32 with
-eps 1e-6 and casts back to the input's dtype; the SwiGLU gate's SiLU works
-in f32 and is cast to the activation dtype before the product with ``u``.
+eps 1e-6 (the models pass ``ModelConfig.norm_eps``) and casts back to the
+input's dtype; the SwiGLU gate's SiLU works in f32 and is cast to the
+activation dtype before the product with ``u``.
 """
 from __future__ import annotations
 

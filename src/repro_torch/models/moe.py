@@ -29,6 +29,20 @@ Where the port differs from the reference, the values do not:
 The capacity counts every token of the call (``T = B·S``), so ``forward``
 over S + t tokens, ``prefill`` over S and a decode step over B tokens can
 drop different choices, as the reference does.
+
+``ModelConfig.moe_dropless`` (granite-4.0-h) takes the other path,
+:func:`moe_share_fwd`: the layer holds ``num_experts`` of the router's
+``router_width`` experts, from ``expert_offset`` on (one chip's share under
+expert parallelism; all of them where the two are equal), routes over all
+of them, and computes its own experts' part of the result. A choice of an
+absent expert adds nothing. No choice drops: each held expert's buffer is
+the call's T tokens in order, row t token t, weighted by t's gate where t
+chose the expert and by 0 where it did not (a token chooses an expert at
+most once, so T rows hold every choice). Every held expert so runs T rows,
+of which T·k/router_width are routed to it on average; the shapes stay
+static, with no host sync. Its work is enqueued under the spans
+``moe.fwd`` > ``moe.route``, ``moe.experts`` (the three products and
+SiLU), ``moe.combine``.
 """
 from __future__ import annotations
 
@@ -39,21 +53,23 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig, dtype_of
 from repro_torch.models.layers import _normal, init_dense, init_mlp, mlp_fwd
+from repro_torch.telemetry.profiling import span
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device,
              lead: tuple = ()):
-    """The reference's leaves (the router in f32, the expert banks
-    ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d) with std
-    ``1/sqrt(d_in)``, the shared experts an MLP of width ``num_shared ·
-    moe_d_ff``), each with the leading ``lead`` axes (the stacked layers).
+    """The reference's leaves (the router (d, router_width) in f32, the
+    held expert banks ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f,
+    d) with std ``1/sqrt(d_in)``, the shared experts an MLP of width
+    ``shared_width``), each with the leading ``lead`` axes (the stacked
+    layers).
 
     An expert bank is drawn one layer at a time into a tensor of the param
     dtype, so the f32 transient is one layer's, not the whole stack's."""
     dt = dtype_of(cfg.param_dtype)
     e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
-    p = {"router": init_dense(generator, d, e, torch.float32, device,
-                              lead=lead)}
+    p = {"router": init_dense(generator, d, cfg.router_width, torch.float32,
+                              device, lead=lead)}
     for name, (d_in, d_out) in (("w_gate", (d, f)), ("w_up", (d, f)),
                                 ("w_down", (f, d))):
         bank = torch.empty((*lead, e, d_in, d_out), dtype=dt, device=device)
@@ -62,9 +78,8 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, device,
                 generator, (e, d_in, d_out), 1.0 / math.sqrt(d_in), dt,
                 device)
         p[name] = bank
-    if cfg.num_shared_experts > 0:
-        p["shared"] = init_mlp(generator, cfg, device,
-                               d_ff=cfg.num_shared_experts * cfg.moe_d_ff,
+    if cfg.shared_width > 0:
+        p["shared"] = init_mlp(generator, cfg, device, d_ff=cfg.shared_width,
                                lead=lead)
     return p
 
@@ -99,6 +114,8 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, cap: int):
 def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig):
     """x: (B, S, D) -> (out (B, S, D), aux), aux the Switch-style
     load-balance loss in f32."""
+    if cfg.moe_dropless:
+        return moe_share_fwd(p, x, cfg)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.moe_top_k
@@ -132,4 +149,49 @@ def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig):
         0, eflat, torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32,
                              device=x.device))
     aux = e * torch.sum(probs.mean(dim=0) * ce)
+    return out.reshape(b, s, d), aux
+
+
+def share_weights(p, xt: torch.Tensor, cfg: ModelConfig):
+    """Routing of (T, D) tokens over the router's full width R, as
+    granite-4.0-h routes: the top k logits (ties to the lower index), the
+    gates their f32 softmax. Returns the (T, E) f32 weight of each held
+    expert for each token (its gate where the token chose it, else 0) and
+    the balance loss over all R experts, every choice counted."""
+    r, k, e = cfg.router_width, cfg.moe_top_k, cfg.num_experts
+    t = xt.shape[0]
+    logits = xt.float() @ p["router"]                            # (T, R)
+    top, eidx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(top[:, :k], dim=-1)                    # (T, k)
+    eidx = eidx[:, :k]
+    held = torch.arange(cfg.expert_offset, cfg.expert_offset + e,
+                        device=xt.device)
+    weight = ((eidx[:, :, None] == held).to(gates.dtype)
+              * gates[..., None]).sum(1)                         # (T, E)
+    ce = torch.zeros((r,), dtype=torch.float32, device=xt.device).index_add(
+        0, eidx.reshape(-1), torch.full((t * k,), 1.0 / (t * k),
+                                        dtype=torch.float32,
+                                        device=xt.device))
+    probs = torch.softmax(logits, dim=-1)
+    aux = r * torch.sum(probs.mean(dim=0) * ce)
+    return weight, aux
+
+
+def moe_share_fwd(p, x: torch.Tensor, cfg: ModelConfig):
+    """The held experts' part of a dropless layer, plus the shared expert
+    (see the module doc). x: (B, S, D) -> (out (B, S, D), aux)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    with span("moe.fwd"):
+        with span("moe.route"):
+            weight, aux = share_weights(p, xt, cfg)
+        with span("moe.experts"):
+            g = xt @ p["w_gate"]                                 # (E, T, f)
+            u = xt @ p["w_up"]
+            h = F.silu(g.float()).to(x.dtype) * u
+            y = h @ p["w_down"]                                  # (E, T, D)
+        with span("moe.combine"):
+            out = torch.einsum("te,etd->td", weight.to(x.dtype), y)
+        if cfg.shared_width > 0:
+            out = out + mlp_fwd(p["shared"], xt)
     return out.reshape(b, s, d), aux

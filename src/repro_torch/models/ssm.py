@@ -150,7 +150,8 @@ def _ssd_fwd(p, xin: torch.Tensor, cfg: ModelConfig, return_cache: bool):
     y = y + p["D_skip"][:, None, None] * xh
     y = y.transpose(2, 3).reshape(bsz, nc * q, di)[:, :s]
 
-    y = rms_norm((y * F.silu(z.float())).to(xin.dtype), p["norm_scale"])
+    y = rms_norm((y * F.silu(z.float())).to(xin.dtype), p["norm_scale"],
+                 cfg.norm_eps)
     out = lora_dense(y, p["out_proj"].to(y.dtype), p.get("lora"),
                      "out_proj")
     if not return_cache:
@@ -199,7 +200,7 @@ def ssd_step(p, xin: torch.Tensor, cache: dict, cfg: ModelConfig):
     y = (y + p["D_skip"][:, None] * xh).reshape(bsz, 1, di)
 
     y = rms_norm((y * F.silu(z.float())[:, None]).to(xin.dtype),
-                 p["norm_scale"])
+                 p["norm_scale"], cfg.norm_eps)
     out = lora_dense(y, p["out_proj"].to(y.dtype), p.get("lora"),
                      "out_proj")
     return out, {"conv": hist[:, 1:], "state": state}

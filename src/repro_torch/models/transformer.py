@@ -1,8 +1,9 @@
 """Transformer LM, port of ``repro.models.transformer`` for every block
 kind: ``dense`` (the ``dense`` and ``vlm`` families), ``moe`` (routed
 experts in place of the MLP), ``ssm`` (Mamba-2, attention-free), ``hybrid``
-(attention ∥ SSD in every block), and ``enc`` / ``dec`` (the ``audio``
-family's encoder-decoder).
+(attention ∥ SSD in every block), ``enc`` / ``dec`` (the ``audio``
+family's encoder-decoder), and the ``hybrid_moe`` family's two kinds,
+``moe`` and ``ssm_moe``, in a pattern.
 
 Parameters keep the reference's key paths, shapes and layouts (dense
 weights ``(d_in, d_out)``), so its params cross with
@@ -15,6 +16,13 @@ weights ``(d_in, d_out)``), so its params cross with
       "enc_embed":  {"proj": (F, D), "norm": (D,)}    (audio, vlm stubs)
       "final":      {"norm": (D,) [, "head": (D, V)]},
     }
+
+A patterned stack (``ModelConfig.attn_period``, the ``hybrid_moe``
+family) keeps its attention layers under a second stacked key,
+``"attn_blocks"`` (kind ``moe``), and its Mamba-2 layers under
+``"blocks"`` (kind ``ssm_moe``); :func:`stack_layers` unbinds both once
+and interleaves their layers in the pattern's order, and
+``core.units`` gives each layer of either key a FedLDF unit.
 
 The reference scans the stacked blocks; here :func:`_run_stack` is a
 Python loop over the layers, whose leaves are views from unbinding each
@@ -42,12 +50,21 @@ A block of each kind (the reference's ``_init_block`` / ``_block_fwd``):
     moe:    x + attn(ln1(x)), then + moe(ln2(x))   (no mlp; aux the
             experts' balance loss, summed over the layers in f32)
     ssm:    x + ssd(ln1(x))                        (no ln2, no mlp)
+    ssm_moe: x + ssd(ln1(x)), then + moe(ln2(x))
     hybrid: x + 0.5·(attn(h) + ssd(h)), h = ln1(x), then + mlp(ln2(x))
     enc:    x + attn(ln1(x)) non-causal, then + mlp(ln2(x))
     dec:    x + attn(ln1(x)), then + cross(ln_cross(x), enc_kv), then
             + mlp(ln2(x))
 
 A block returns ``(x, aux)``, aux 0 in f32 for the kinds without experts.
+granite-4.0-h's μP multipliers and attention are options of the same
+blocks: each residual branch is scaled by ``residual_multiplier``, the
+embedding by ``embedding_multiplier``, the logits divided by
+``logits_scaling``; ``nope`` leaves q and k unrotated, and a non-zero
+``attention_multiplier`` scales the scores in place of 1/√hd (q is
+multiplied by ``attention_multiplier·√hd`` before :func:`attend`, which
+applies 1/√hd, so every route of the kernel serves it unchanged). At their
+defaults (1, 1, 1, off, 0) no operation is added.
 An enc-dec model encodes its frames once (:func:`_encode`: the frontend
 stub's projection, then the ``enc`` stack), projects each decoder layer's
 cross K/V from the encoder's output once (:func:`_enc_kv_all`), and its
@@ -63,6 +80,7 @@ Frames in the compute dtype, or narrower, are cast to it.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -80,8 +98,23 @@ Pytree = Any
 
 
 def block_kind(cfg: ModelConfig) -> str:
+    """The kind of every block of ``params["blocks"]``."""
     return {"dense": "dense", "vlm": "dense", "moe": "moe",
-            "ssm": "ssm", "hybrid": "hybrid", "audio": "dec"}[cfg.family]
+            "ssm": "ssm", "hybrid": "hybrid", "hybrid_moe": "ssm_moe",
+            "audio": "dec"}[cfg.family]
+
+
+ATTN_BLOCKS = "attn_blocks"     # a patterned stack's attention layers
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    """Each layer's kind in order: a patterned stack's attention layers
+    are ``moe`` blocks, the rest of its kind (``block_kind``)."""
+    kind = block_kind(cfg)
+    if not cfg.attn_period:
+        return [kind] * cfg.num_layers
+    return ["moe" if cfg.is_attention_layer(i) else kind
+            for i in range(cfg.num_layers)]
 
 
 # ======================================================================
@@ -118,9 +151,9 @@ def _stack_blocks(gen: torch.Generator, cfg: ModelConfig, device,
     lead = (depth,)
     p: dict = {"ln1": torch.ones((depth, cfg.d_model), dtype=dt,
                                  device=device)}
-    if kind != "ssm":
+    if kind not in ("ssm", "ssm_moe"):
         p["attn"] = _init_attn(gen, cfg, device, lead)
-    if kind in ("ssm", "hybrid"):
+    if kind in ("ssm", "hybrid", "ssm_moe"):
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device, lead)
     if kind == "ssm":
         return p
@@ -129,7 +162,7 @@ def _stack_blocks(gen: torch.Generator, cfg: ModelConfig, device,
                                    device=device)
         p["cross"] = _init_attn(gen, cfg, device, lead, cross=True)
     p["ln2"] = torch.ones((depth, cfg.d_model), dtype=dt, device=device)
-    if kind == "moe":
+    if kind in ("moe", "ssm_moe"):
         p["moe"] = moe_mod.init_moe(gen, cfg, device, lead)
     else:
         p["mlp"] = init_mlp(gen, cfg, device, lead=lead)
@@ -145,14 +178,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     numbers differ from the reference's ``jax.random`` draws; parity tests
     carry weights across instead."""
     dt = dtype_of(cfg.param_dtype)
+    n_attn = cfg.num_attention_layers
     params: Pytree = {
         "embed": {"tok": init_embed(generator, cfg.vocab_size, cfg.d_model,
                                     dt, device)},
         "blocks": _stack_blocks(generator, cfg, device, block_kind(cfg),
-                                cfg.num_layers),
+                                cfg.num_layers - n_attn),
         "final": {"norm": torch.ones((cfg.d_model,), dtype=dt,
                                      device=device)},
     }
+    if n_attn:
+        params[ATTN_BLOCKS] = _stack_blocks(generator, cfg, device, "moe",
+                                            n_attn)
     if not cfg.tie_embeddings:
         params["final"]["head"] = init_dense(generator, cfg.d_model,
                                              cfg.vocab_size, dt, device)
@@ -184,9 +221,9 @@ def _qkv(p, cfg: ModelConfig, x, positions):
     k = k.reshape(b, s, cfg.num_kv_heads, hd)
     v = v.reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:                       # before RoPE, as the reference
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    if positions is not None:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if positions is not None and not cfg.nope:
         if cfg.mrope:
             q = attn.apply_mrope(q, positions, cfg.mrope_sections,
                                  cfg.rope_theta)
@@ -204,6 +241,8 @@ def _self_attn(p, cfg: ModelConfig, x, positions, *, causal=True,
     full-sequence passes use)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
+    if cfg.attention_multiplier:
+        q = q * (cfg.attention_multiplier * math.sqrt(cfg.hd))
     o = attn.attend(q, k, v, causal=causal, window=cfg.sliding_window,
                     chunk=cfg.attn_chunk, probs_bf16=cfg.attn_probs_bf16,
                     flash_attention=flash_attention)
@@ -230,30 +269,42 @@ def _cross_attn(p, cfg: ModelConfig, x, enc_kv,
 # ======================================================================
 def _ffn(blk, cfg: ModelConfig, h, kind: str):
     """The block's feed-forward on ``h = ln2(x)``: (out, aux), aux the
-    experts' balance loss for the moe kind, None for an MLP."""
-    if kind == "moe":
+    experts' balance loss for the kinds with experts, None for an MLP."""
+    if kind in ("moe", "ssm_moe"):
         return moe_mod.moe_fwd(blk["moe"], h, cfg)
     return mlp_fwd(blk["mlp"], h), None
+
+
+def _residual(cfg: ModelConfig, x, branch):
+    """``x + residual_multiplier · branch`` (no product at 1)."""
+    r = cfg.residual_multiplier
+    return x + (branch if r == 1.0 else r * branch)
 
 
 def _block_fwd(blk, cfg: ModelConfig, x, positions, kind: str,
                flash_attention=None, enc_kv=None):
     """One block of ``kind``; ``enc_kv`` is a ``dec`` block's (k, v) pair
     (without it the block skips its cross-attention, as the reference)."""
-    h = rms_norm(x, blk["ln1"])
+    eps = cfg.norm_eps
+    h = rms_norm(x, blk["ln1"], eps)
     if kind == "ssm":
-        return (x + ssm_mod.ssd_fwd(blk["ssm"], h, cfg),
+        return (_residual(cfg, x, ssm_mod.ssd_fwd(blk["ssm"], h, cfg)),
                 torch.zeros((), device=x.device))
-    o = _self_attn(blk["attn"], cfg, h, positions, causal=kind != "enc",
-                   flash_attention=flash_attention)
+    if kind == "ssm_moe":
+        o = ssm_mod.ssd_fwd(blk["ssm"], h, cfg)
+    else:
+        o = _self_attn(blk["attn"], cfg, h, positions, causal=kind != "enc",
+                       flash_attention=flash_attention)
     if kind == "hybrid":
         o = 0.5 * (o + ssm_mod.ssd_fwd(blk["ssm"], h, cfg))
-    x = x + o
+    x = _residual(cfg, x, o)
     if kind == "dec" and enc_kv is not None:
-        x = x + _cross_attn(blk["cross"], cfg, rms_norm(x, blk["ln_cross"]),
-                            enc_kv, flash_attention)
-    out, aux = _ffn(blk, cfg, rms_norm(x, blk["ln2"]), kind)
-    return x + out, torch.zeros((), device=x.device) if aux is None else aux
+        x = _residual(cfg, x, _cross_attn(
+            blk["cross"], cfg, rms_norm(x, blk["ln_cross"], eps), enc_kv,
+            flash_attention))
+    out, aux = _ffn(blk, cfg, rms_norm(x, blk["ln2"], eps), kind)
+    return (_residual(cfg, x, out),
+            torch.zeros((), device=x.device) if aux is None else aux)
 
 
 class _RecomputeBlock(torch.autograd.Function):
@@ -297,16 +348,18 @@ class _RecomputeBlock(torch.autograd.Function):
         return (None, *grads)
 
 
-def _run_stack(layers, cfg: ModelConfig, x, positions, kind: str,
+def _run_stack(layers, cfg: ModelConfig, x, positions, kind,
                enc_kv=None, flash_attention=None):
-    """(x, aux): the ``kind`` blocks of ``layers`` (a stack's per-layer
-    trees, :func:`tree_unbind`) in order, aux summed over the layers in
-    f32. ``enc_kv``: the decoder's stacked (L, B, S_enc, KV, hd) pair;
-    layer ``l`` reads its slice ``l``, unbound once too."""
+    """(x, aux): the blocks of ``layers`` (a stack's per-layer trees,
+    :func:`tree_unbind`) in order, each of ``kind`` (one kind, or a list of
+    one a layer), aux summed over the layers in f32. ``enc_kv``: the
+    decoder's stacked (L, B, S_enc, KV, hd) pair; layer ``l`` reads its
+    slice ``l``, unbound once too."""
     aux = torch.zeros((), device=x.device)
+    kinds = [kind] * len(layers) if isinstance(kind, str) else kind
     kvs = ([()] * len(layers) if enc_kv is None
            else zip(*map(tree_unbind, enc_kv)))
-    for blk, kv in zip(layers, kvs):
+    for blk, kind, kv in zip(layers, kinds, kvs):
         if not cfg.remat_blocks:
             x, a = _block_fwd(blk, cfg, x, positions, kind, flash_attention,
                               kv or None)
@@ -314,7 +367,7 @@ def _run_stack(layers, cfg: ModelConfig, x, positions, kind: str,
             continue
         paths, leaves = zip(*leaf_paths(blk))
 
-        def fn(x, positions, *tensors, paths=paths, n=len(kv)):
+        def fn(x, positions, *tensors, paths=paths, n=len(kv), kind=kind):
             return _block_fwd(tree_from_paths(paths, tensors[n:]), cfg, x,
                               positions, kind, flash_attention,
                               tensors[:n] or None)
@@ -325,6 +378,21 @@ def _run_stack(layers, cfg: ModelConfig, x, positions, kind: str,
         x, a = _RecomputeBlock.apply(fn, x, positions, *kv, *leaves)
         aux = aux + a
     return x, aux
+
+
+def stack_layers(params, cfg: ModelConfig):
+    """``(layers, kinds)``: the decoder stack's per-layer trees in order,
+    each stacked key unbound once, and each layer's kind. A patterned
+    stack interleaves ``params["attn_blocks"]`` and ``params["blocks"]``
+    in the pattern's order."""
+    kinds = layer_kinds(cfg)
+    if not cfg.attn_period:
+        return tree_unbind(params["blocks"]), kinds
+    attn_layers = iter(tree_unbind(params[ATTN_BLOCKS])
+                       if ATTN_BLOCKS in params else ())
+    other = iter(tree_unbind(params["blocks"]))
+    return [next(attn_layers) if k == "moe" else next(other)
+            for k in kinds], kinds
 
 
 # ======================================================================
@@ -352,7 +420,7 @@ def _encode(params, cfg: ModelConfig, enc_inputs,
         enc = tree_map(lambda l: l.to(dt) if l.is_floating_point() else l,
                        enc)
     x = enc_inputs.to(dt) @ enc["enc_embed"]["proj"]
-    x = rms_norm(x, enc["enc_embed"]["norm"])
+    x = rms_norm(x, enc["enc_embed"]["norm"], cfg.norm_eps)
     pos = _positions_for(cfg, x.shape[0], x.shape[1], x.device)
     x, _ = _run_stack(tree_unbind(enc["enc_blocks"]), cfg, x, pos, "enc",
                       flash_attention=flash_attention)
@@ -381,20 +449,25 @@ def _enc_kv_all(layers, cfg: ModelConfig, enc_out):
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, embeddings=None):
     x = params["embed"]["tok"][tokens]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     if embeddings is not None and cfg.family == "vlm":
         # VLM early-fusion stub: add projected patch embeddings to the first
         # S_vis token slots (precomputed by the stubbed vision tower).
         proj = embeddings @ params["enc_embed"]["proj"]
-        proj = rms_norm(proj, params["enc_embed"]["norm"])
+        proj = rms_norm(proj, params["enc_embed"]["norm"], cfg.norm_eps)
         x[:, :proj.shape[1], :] += proj.to(x.dtype)
     return x.to(dtype_of(cfg.compute_dtype))
 
 
 def _logits(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["final"]["norm"])
+    x = rms_norm(x, params["final"]["norm"], cfg.norm_eps)
     head = (params["embed"]["tok"].T if cfg.tie_embeddings
             else params["final"]["head"])
-    return x @ head.to(x.dtype)
+    logits = x @ head.to(x.dtype)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def _need_frames(cfg: ModelConfig, enc_inputs):
@@ -416,13 +489,12 @@ def forward(params: Pytree, cfg: ModelConfig, tokens: torch.Tensor,
     b, s = tokens.shape
     x = _embed_tokens(params, cfg, tokens, embeddings)
     pos = _positions_for(cfg, b, s, tokens.device)
-    layers = tree_unbind(params["blocks"])
+    layers, kinds = stack_layers(params, cfg)
     enc_kv = None
     if cfg.is_encdec:
         enc_kv = _enc_kv_all(layers, cfg, _encode(
             params, cfg, _need_frames(cfg, enc_inputs), flash_attention))
-    x, aux = _run_stack(layers, cfg, x, pos, block_kind(cfg), enc_kv,
-                        flash_attention)
+    x, aux = _run_stack(layers, cfg, x, pos, kinds, enc_kv, flash_attention)
     return _logits(params, cfg, x), aux
 
 

@@ -12,7 +12,10 @@ and backward peak against the former slice a layer of the stacked
 blocks), and the moe kind (``moe_fwd``
 against a per-expert loop with choices dropped and no host sync,
 deepseek-moe-16b's attention shapes, a small moe model's serving and its
-``vmap(grad)`` of ``lm_loss`` against the CPU), and the enc-dec kinds
+``vmap(grad)`` of ``lm_loss`` against the CPU), granite-4.0-h (its
+held experts' share at full width against the per-expert loop without a
+host sync, and a scan block of the patterned stack without one), and the
+enc-dec kinds
 (seamless-m4t-large-v2's attention shapes, a small enc-dec model's
 serving and its ``vmap(grad)`` of ``lm_loss`` against the CPU), and round
 telemetry (a telemetry-on round and the engine's ledger against the CPU,
@@ -1616,6 +1619,82 @@ def test_cuda_moe_vmap_grad_matches_cpu(cuda, no_tf32, remat):
         torch.testing.assert_close(a.cpu(), c, rtol=0, atol=EQUIV_TOL)
     assert ops.launch_counts()["flash_attention"] == \
         cfg.num_layers * (2 if remat else 1)
+
+
+# -- granite-4.0-h: the held experts' share and the patterned stack ---------
+def _granite_f32(**kw):
+    return dataclasses.replace(get_config("granite-4.0-h-small"),
+                               param_dtype="float32",
+                               compute_dtype="float32", **kw)
+
+
+def test_cuda_granite_moe_share_matches_the_loop_without_a_sync(cuda,
+                                                                no_tf32):
+    """granite-4.0-h-small's expert layer at its widths (9 of 72 experts
+    of 768, top-10, a shared expert of 1536, d 4096) in f32 over T = 2 ×
+    1024 tokens, dropless, enqueued under ``set_sync_debug_mode("error")``
+    (a host sync raises), against the benchmark reference's per-expert
+    loop within 1e-4 of max |out|."""
+    from bench import spec
+    ref = spec.reference("granite-4.0-h-small")
+    cfg = _granite_f32(num_experts=9, router_experts=72)
+    p = tmoe.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg,
+                      cuda)
+    x = torch.randn(2, 1024, cfg.d_model, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = tmoe.moe_fwd(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    z = ref._dims(dataclasses.asdict(cfg))
+    want, want_aux = ref.experts(p, x, z, 0, "f32")
+    sh = p["shared"]
+    want = want + ref._swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
+                              "f32")
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-5)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_cuda_granite_block_does_not_sync(cuda, no_tf32):
+    """A 2-round scan block of the small granite model (both kinds of
+    layer, the held experts, remat) enqueues without one host sync."""
+    from bench import data as bench_data
+    cfg = dataclasses.replace(_granite_f32().reduced(), num_experts=4,
+                              router_experts=8, remat_blocks=True)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    ds = bench_data.tokens({"seq_len": 16, "num_sequences": 16,
+                            "num_domains": 4, "eval_sequences": 2,
+                            "partition": "domain"}, cfg.vocab_size, 4, 0,
+                           cuda)
+    shards = ClientShards(xs=ds.xs, ys=ds.ys, part_idx=ds.part_idx,
+                          part_sizes=ds.part_sizes, x_key="tokens",
+                          y_key="labels")
+    fl = FLConfig(num_clients=4, clients_per_round=2, top_n=1,
+                  batch_per_client=2, mode="scan")
+    loss = ttf.make_lm_loss(cfg)
+    host_sizes, all_sizes = shards.part_sizes.cpu(), shards.data_sizes()
+    run_block = fl_server._build_block_fn(loss, UnitMap.build(params), fl)
+
+    def carry():
+        return (params, make_strategy(fl).init_state(params, 4),
+                comm_acc_init(cuda))
+
+    draws = KeyedDraws(0)
+    run_block(carry(), shards, all_sizes, host_sizes, draws, 0, 2)  # warm
+    c0 = carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (_, _, acc), per = run_block(c0, shards, all_sizes, host_sizes,
+                                     draws, 0, 2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(per["loss"]).all())
+    assert float(acc["rounds"]) == 2.0
 
 
 # -- the enc-dec kinds -------------------------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.launch import roofline as troof
 from repro_torch.launch import sharding as tsh
 from repro_torch.launch import shapes as tshapes
 from repro_torch.launch import variants as tvar
+from repro_torch.models.config import reference_fields
 
 
 class FakeMesh:
@@ -227,7 +228,7 @@ def test_program_arguments_equal_reference(arch, shape):
     jp, tp = _programs(arch)[shape]
     assert jp.arg_kinds == tp.arg_kinds
     assert dataclasses.asdict(jshapes.adapt_config(
-        jget(arch), jshapes.SHAPES[shape])) == dataclasses.asdict(
+        jget(arch), jshapes.SHAPES[shape])) == reference_fields(
         tshapes.adapt_config(tget(arch), tshapes.SHAPES[shape]))
     for ja, ta, kind in zip(jp.args, tp.args, tp.arg_kinds):
         if callable(ta):
@@ -282,7 +283,7 @@ def test_apply_variant_equals_reference(variant, arch):
     for daxes in (("data",), ("pod", "data")):
         jcfg, jov = jvar.apply_variant(variant, jget(arch), daxes)
         tcfg, tov = tvar.apply_variant(variant, tget(arch), daxes)
-        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+        assert reference_fields(tcfg) == dataclasses.asdict(jcfg)
         if jov is None:
             assert tov is None
         else:
